@@ -18,17 +18,35 @@ without them. Phases, one JSON line each:
    run must equal the band count; the class map must equal the sweep's with
    the plain gather; float32 logits on the card must agree with the CPU's on
    a small batch. Then the sweep is timed.
-5. ``kernels``: each kernel's time at the main path's shapes beside its
-   plain version, one PyTorch library call and its bound.
-6. ``profile``: device time by kernel over one traced sweep, and the
-   device's idle share.
+5. ``train``: ``train_for_classification --device=cuda`` at the same width,
+   published batch 48 and dropout 0.7, with rotation, reflection and spectral
+   augmentation, 600 steps with checkpoints every 200 into a fresh log dir.
+   The gather's launch count must equal the steps plus the eval batches;
+   losses finite and falling, test OA above 0.5. Then the steady-state step
+   time (median of 3 runs of 100 steps after 20 warm-up steps), peak device
+   memory and the step's float32 bound.
+6. ``train_vs_cpu``: 5 steps from the same weights on the same batches,
+   dropout and augmentation off, on the card and on the CPU.
+7. ``resume``: the train CLI again into the same log dir with 700 steps: it
+   resumes at 600 and runs 100 steps.
+8. ``infer_trained``: the infer CLI with ``--domain=all`` and then
+   ``--domain=sample`` from the trained checkpoint.
+9. ``kernels``: each kernel's time at the main path's shapes (the sweep's
+   band, the training step's batch of 48, the eval drain's batch of 8192)
+   beside its plain version, one PyTorch library call and its bound.
+10. ``profile``: device time by kernel over one traced sweep, and the
+    device's idle share.
+11. ``profile_train``: the same over 50 traced training steps.
 
 The last line is ``{"ok": true, "device": {...}}``. Any failure raises.
 """
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -40,17 +58,24 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from hypelcnn_tpu_torch.apps import infer_for_classification
+from hypelcnn_tpu_torch.apps import infer_for_classification, train_for_classification
 from hypelcnn_tpu_torch.core.config import load_algorithm_params
 from hypelcnn_tpu_torch.core.platform import resolve_device
+from hypelcnn_tpu_torch.core.registry import get_importer_from_name
+from hypelcnn_tpu_torch.core.rng import set_run_seed
+from hypelcnn_tpu_torch.data.augmentation import AugmentationInfo
 from hypelcnn_tpu_torch.data.loaders.synthetic import SyntheticDataLoader
-from hypelcnn_tpu_torch.infer.scene_inference import predict_full_scene
+from hypelcnn_tpu_torch.infer.scene_inference import (
+    create_target_image_via_samples,
+    predict_full_scene,
+)
 from hypelcnn_tpu_torch.kernels import build
-from hypelcnn_tpu_torch.kernels.window_gather import window_gather_cuda
+from hypelcnn_tpu_torch.kernels.window_gather import reset_launches, window_gather_cuda
 from hypelcnn_tpu_torch.models.hypelcnn import HYPELCNNModel
 from hypelcnn_tpu_torch.models.layers import SlimBatchNorm, SlimConv, init_parameters
 from hypelcnn_tpu_torch.ops.window_gather import gather_patches_torch
-from hypelcnn_tpu_torch.train.checkpoint import save_checkpoint
+from hypelcnn_tpu_torch.train.checkpoint import checkpoint_steps, save_checkpoint
+from hypelcnn_tpu_torch.train.trainer import ClassificationTrainer
 from hypelcnn_tpu_torch.utils.tiff_io import read_tags
 
 ROOT = Path(__file__).resolve().parent
@@ -62,6 +87,11 @@ PARAMS_PATH = ROOT / "configs" / "modelconfigs" / "alg_param_hypelcnn.json"
 SEED = 1234
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 FP32_FLOP_PER_S = 67e12  # H100 SXM float32 outside the tensor cores, same sheet
+TRAIN_BATCH, TRAIN_STEPS, RESUME_STEPS, CHECKPOINT_EVERY = 48, 600, 700, 200
+TRAIN_RATIO, TEST_RATIO = 0.10, 0.05
+TEST_CADENCE, EVAL_BATCH, SAMPLE_BATCH = 100, 8192, 4096
+SPECTRAL = 0.05
+QUEUE_SLEEP_CYCLES = 100_000_000  # ~50 ms at the H100's clocks: longer than queueing 21 calls
 
 
 def emit(record: dict) -> None:
@@ -179,7 +209,7 @@ def phase_infer_all(device, work: Path):
     n_bands = (HEIGHT + BATCH_ROWS - 1) // BATCH_ROWS
 
     torch.cuda.reset_peak_memory_stats()
-    window_gather_cuda.launches = 0
+    reset_launches()
     start = time.perf_counter()
     infer_for_classification.main([
         "--loader_name=SyntheticDataLoader", f"--path={SPEC}", f"--neighborhood={NEIGHBORHOOD}",
@@ -239,12 +269,204 @@ def phase_infer_all(device, work: Path):
           "classes_in_map": classes_in_map, "logit_rel_err_vs_cpu": logit_err,
           "peak_device_bytes": peak_bytes,
           "parameters": sum(p.numel() for p in module.parameters())})
-    return scene, module, launches
+    return scene, module, launches, macs
+
+
+def _train_args(log_root: Path, steps: int) -> list:
+    return ["--device=cuda", "--loader_name=SyntheticDataLoader", f"--path={SPEC}",
+            "--model_name=HYPELCNNModel", "--importer_name=GeneratorImporter",
+            f"--neighborhood={NEIGHBORHOOD}", f"--algorithm_param_path={PARAMS_PATH}",
+            f"--batch_size={TRAIN_BATCH}", f"--train_ratio={TRAIN_RATIO}",
+            f"--test_ratio={TEST_RATIO}", f"--step={steps}",
+            f"--save_checkpoint_steps={CHECKPOINT_EVERY}", "--augment_data_with_rotation",
+            "--augment_data_with_reflection", f"--augment_data_with_spectral={SPECTRAL}",
+            f"--base_log_path={log_root}"]
+
+
+def _run_train_cli(args: list):
+    """Run the train CLI; its printout is kept, not shown (it holds every flag)."""
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        result = train_for_classification.main(args)
+    return result, out.getvalue()
+
+
+def _eval_batches(n: int) -> int:
+    return math.ceil(n / min(EVAL_BATCH, n)) if n else 0
+
+
+def _expected_launches(start: int, stop: int, n_test: int, n_validation: int) -> dict:
+    """Gather launches of a train CLI run from ``start`` to ``stop``: one a
+    step, one an eval batch (test drains at the test cadence but not at the
+    last step, then the final test and validation drains)."""
+    drains = sum(1 for end in range(start + 1, stop) if end % TEST_CADENCE == 0)
+    evals = (drains + 1) * _eval_batches(n_test) + _eval_batches(n_validation)
+    return {"steps": stop - start, "eval_batches": evals, "total": stop - start + evals}
+
+
+def _logged_losses(log_dir: Path) -> list:
+    with open(log_dir / "summaries.jsonl", encoding="utf-8") as fid:
+        records = [json.loads(line) for line in fid]
+    return [(r["step"], r["value"]) for r in records if r.get("tag") == "loss"]
+
+
+def _training_data():
+    """The CLI's data set, made the same way (seed, loader, split)."""
+    set_run_seed()
+    return get_importer_from_name("GeneratorImporter").read_data_set(
+        "SyntheticDataLoader", SPEC, TRAIN_RATIO, TEST_RATIO, NEIGHBORHOOD)
+
+
+def _trainer(data, params, device, augmentation=None) -> ClassificationTrainer:
+    return ClassificationTrainer(
+        model=HYPELCNNModel(), class_count=data.class_count, algorithm_params=params,
+        scene=data.scene, sample_set=data.sample_set, sources=data.sources,
+        data_shape=data.data_shape, augmentation_info=augmentation, device=device)
+
+
+def _timed_steps(trainer, state, tables, start: int, count: int) -> float:
+    torch.cuda.synchronize()
+    begin = time.perf_counter()
+    for step in range(start, start + count):
+        trainer.train_step(state, tables, step)
+    torch.cuda.synchronize()
+    return time.perf_counter() - begin
+
+
+def phase_train(device, work: Path, data, macs: int) -> dict:
+    params = {**load_algorithm_params(HYPELCNNModel().default_params(), str(PARAMS_PATH)),
+              "batch_size": TRAIN_BATCH}
+    counts = {split: data.targets(split).shape[0] for split in ("training", "test", "validation")}
+    expected = _expected_launches(0, TRAIN_STEPS, counts["test"], counts["validation"])
+    log_root = work / "train_log"
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    start = time.perf_counter()
+    result, _ = _run_train_cli(_train_args(log_root, TRAIN_STEPS))
+    cli_seconds = time.perf_counter() - start
+    launches = window_gather_cuda.launches
+    by_batch = dict(window_gather_cuda.launches_by_batch)
+    cli_peak_bytes = torch.cuda.max_memory_allocated()
+    (log_dir,) = [p for p in log_root.iterdir() if p.is_dir()]
+    losses = _logged_losses(log_dir)
+    # the steps launch at the training batch, the eval drains at every other size
+    eval_sizes = {min(EVAL_BATCH, counts["test"]), min(EVAL_BATCH, counts["validation"])}
+    check(TRAIN_BATCH not in eval_sizes, f"an eval batch has the step's size: {eval_sizes}")
+    measured = {"steps": by_batch.get(TRAIN_BATCH, 0),
+                "eval_batches": launches - by_batch.get(TRAIN_BATCH, 0), "total": launches}
+    check(measured == expected,
+          f"window_gather launches over training {measured} (by batch {by_batch}), "
+          f"expected {expected}")
+    check(len(losses) > 1 and all(math.isfinite(v) for _, v in losses),
+          f"non-finite or missing logged losses: {losses}")
+    check(losses[-1][1] < losses[0][1], f"the logged loss did not fall: {losses}")
+    check(result.test_accuracy > 0.5, f"test OA {result.test_accuracy} is not above 0.5")
+    saved = checkpoint_steps(str(log_dir))
+    check(all(s in saved for s in range(CHECKPOINT_EVERY, TRAIN_STEPS + 1, CHECKPOINT_EVERY)),
+          f"checkpoints at {saved}")
+
+    # steady state, through the trainer's own step, on the CLI's configuration
+    augmentation = AugmentationInfo(perform_rotation_augmentation=True,
+                                    perform_reflection_augmentation=True,
+                                    perform_spectral_augmentation=SPECTRAL)
+    trainer = _trainer(data, params, device, augmentation)
+    state = trainer.init_state()
+    tables = trainer.training_tables(20 + 3 * 100 + 2 * 50, TRAIN_BATCH)
+    torch.cuda.reset_peak_memory_stats()
+    _timed_steps(trainer, state, tables, 0, 20)
+    runs = [_timed_steps(trainer, state, tables, 20 + 100 * i, 100) / 100 for i in range(3)]
+    step_seconds = statistics.median(runs)
+    step_flop = 3 * 2 * macs * TRAIN_BATCH  # forward + backward ~ 3 forwards
+    emit({"phase": "train", "steps": TRAIN_STEPS, "batch": TRAIN_BATCH,
+          "targets": counts, "gather_launches": measured, "expected_launches": expected,
+          "gather_launches_by_batch": {str(b): n for b, n in sorted(by_batch.items())},
+          "logged_losses": losses, "test_oa": result.test_accuracy,
+          "checkpoints": saved, "cli_seconds": cli_seconds,
+          "step_seconds": step_seconds, "step_runs": runs,
+          "patches_per_second": TRAIN_BATCH / step_seconds,
+          "cli_peak_device_bytes": cli_peak_bytes,
+          "steady_peak_device_bytes": torch.cuda.max_memory_allocated(),
+          "flop_per_step": step_flop, "step_bound_seconds": step_flop / FP32_FLOP_PER_S})
+    return {"log_root": log_root, "log_dir": log_dir, "launches": measured,
+            "trainer": trainer, "state": state, "tables": tables, "next_step": 320,
+            "params": params}
+
+
+def phase_train_vs_cpu(device, data, params) -> None:
+    """5 steps from the same weights on the same batches, card against CPU."""
+    plain = {**params, "drop_out_ratio": 0.0}
+    weights = _trainer(data, plain, "cpu").init_state().module.state_dict()
+    losses = {}
+    for name, where in (("card", device), ("cpu", torch.device("cpu"))):
+        trainer = _trainer(data, plain, where)
+        state = trainer.init_state(weights)
+        tables = trainer.training_tables(5, TRAIN_BATCH)
+        losses[name] = [float(trainer.train_step(state, tables, step)) for step in range(5)]
+    rel = [abs(g - c) / abs(c) for g, c in zip(losses["card"], losses["cpu"])]
+    check(rel[0] < 1e-4, f"step 1 loss differs by {rel[0]} (relative) between card and CPU")
+    check(rel[-1] < 1e-3, f"step 5 loss differs by {rel[-1]} (relative) between card and CPU")
+    emit({"phase": "train_vs_cpu", "losses": losses, "rel_diff": rel})
+
+
+def phase_resume(device, train) -> None:
+    sample = train["trainer"].sample_set
+    expected = _expected_launches(TRAIN_STEPS, RESUME_STEPS, sample.test_targets.shape[0],
+                                  sample.validation_targets.shape[0])
+    reset_launches()
+    result, out = _run_train_cli(_train_args(train["log_root"], RESUME_STEPS))
+    launches = window_gather_cuda.launches
+    resumed = [line for line in out.splitlines() if line.startswith("Resuming")]
+    check(resumed == [f"Resuming from checkpoint at step {TRAIN_STEPS}"],
+          f"the second run did not resume at step {TRAIN_STEPS}: {resumed}")
+    check(launches == expected["total"],
+          f"window_gather launched {launches} times over the resumed run, expected {expected}")
+    check(result.final_state.step == RESUME_STEPS and
+          result.steps_run == RESUME_STEPS - TRAIN_STEPS,
+          f"resumed run ran {result.steps_run} steps to {result.final_state.step}")
+    check(RESUME_STEPS in checkpoint_steps(str(train["log_dir"])), "no checkpoint at the end")
+    check(math.isfinite(result.loss), f"resumed loss {result.loss}")
+    emit({"phase": "resume", "resumed_line": resumed[0], "gather_launches": launches,
+          "expected_launches": expected, "final_step": result.final_state.step,
+          "loss": result.loss, "test_oa": result.test_accuracy})
+
+
+def phase_infer_trained(device, work: Path, train) -> None:
+    maps, launches = {}, {}
+    for domain in ("all", "sample"):
+        out_dir = work / f"trained_{domain}"
+        reset_launches()
+        infer_for_classification.main([
+            "--loader_name=SyntheticDataLoader", f"--path={SPEC}",
+            f"--neighborhood={NEIGHBORHOOD}", f"--algorithm_param_path={PARAMS_PATH}",
+            f"--base_log_path={train['log_dir']}", f"--output_path={out_dir}",
+            f"--domain={domain}", "--device=cuda"])
+        launches[domain] = window_gather_cuda.launches
+        raw, colorized = out_dir / "result_raw.tif", out_dir / "result_colorized.tif"
+        check(raw.is_file() and colorized.is_file(), f"--domain={domain} did not write both TIFFs")
+        check(read_tags(str(colorized))[279] == HEIGHT * WIDTH * 3, "colorized strip size")
+        maps[domain] = _read_tiff_strip(raw, (HEIGHT, WIDTH))
+    n_bands = (HEIGHT + BATCH_ROWS - 1) // BATCH_ROWS
+    check(launches == {"all": n_bands, "sample": math.ceil(HEIGHT * WIDTH / SAMPLE_BATCH)},
+          f"window_gather launches in the infer CLI: {launches}")
+    differ = int((maps["all"] != maps["sample"]).sum())
+    check(differ <= 1e-4 * HEIGHT * WIDTH,
+          f"{differ} pixels differ between --domain=all and --domain=sample")
+    set_run_seed()
+    loader = SyntheticDataLoader(SPEC)
+    truth = create_target_image_via_samples(loader.load_samples(0.1, 0), (HEIGHT, WIDTH))
+    emit({"phase": "infer_trained", "gather_launches": launches, "pixels_differ": differ,
+          "agreement_with_truth": float((maps["all"] == truth).mean())})
 
 
 def _event_times(fn, inputs) -> list:
-    """Per-call device time in ms, from CUDA events around each call."""
+    """Per-call device time in ms, from CUDA events around each call. A
+    sleep kernel first holds the stream until every call is queued behind
+    it, so the events time the device's work, not the host's launch overhead
+    (which is longer than a small batch's kernel)."""
     fn(inputs[0])
+    torch.cuda.synchronize()
+    torch.cuda._sleep(QUEUE_SLEEP_CYCLES)
     times = []
     for item in inputs:
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -256,51 +478,80 @@ def _event_times(fn, inputs) -> list:
     return [s.elapsed_time(e) for s, e in times]
 
 
-def phase_kernels(device, scene, launches: int) -> None:
-    scene_dev = scene.device_scene(device)
+def _gather_row(scene_dev, batches, launches: int, shape_note: str = "") -> dict:
+    """One kernel row: the CUDA gather on each coordinate batch, bit-exact
+    against the plain version, then timed beside it and the library call."""
     k = 2 * NEIGHBORHOOD + 1
     hp, wp, channels = scene_dev.shape
-    n_bands = (HEIGHT + BATCH_ROWS - 1) // BATCH_ROWS
+    offs = torch.arange(k, device=scene_dev.device)
+    # in-range indices for the library call: every batch lies inside the padded scene
+    index_pairs = [((c[:, 1, None] + offs)[:, :, None], (c[:, 0, None] + offs)[:, None, :])
+                   for c in batches]
+    before = (window_gather_cuda.launches, window_gather_cuda.launches_by_batch.copy())
+    err = 0.0
+    for coords in batches:
+        got = window_gather_cuda(scene_dev, coords, k)
+        err = max(err, float((got - gather_patches_torch(scene_dev, coords, k)).abs().max()))
+    check(err == 0.0, f"window_gather differs from its plain version at "
+                      f"{tuple(batches[0].shape)}: {err}")
+    ms = statistics.median(_event_times(lambda c: window_gather_cuda(scene_dev, c, k), batches))
+    plain_ms = statistics.median(_event_times(lambda c: gather_patches_torch(scene_dev, c, k),
+                                              batches))
+    library_ms = statistics.median(_event_times(lambda yx: scene_dev[yx[0], yx[1]], index_pairs))
+    window_gather_cuda.launches, window_gather_cuda.launches_by_batch = before
+    # bytes the function must move for one batch: each output float written
+    # once, each distinct scene pixel it reads read once, the coordinates read once
+    batch = batches[0].shape[0]
+    ys, xs = index_pairs[0]
+    distinct_pixels = int(torch.unique((ys * wp + xs).reshape(-1)).numel())
+    out_bytes = batch * k * k * channels * 4
+    read_bytes = distinct_pixels * channels * 4 + batch * 2 * 4
+    return {"name": "window_gather", "route": "cuda",
+            "source": "hypelcnn_tpu_torch/csrc/window_gather.cu",
+            "replaces": "hypelcnn_tpu/ops/window_gather.py:183",
+            "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": (out_bytes + read_bytes) / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+            "library_ms": library_ms, "shape": f"{batch}x{k}x{k}x{channels} f32{shape_note}",
+            "bytes_written": out_bytes, "bytes_read": read_bytes}
+
+
+def _training_batches(tables, start: int, count: int) -> list:
+    return [tables.coords.index_select(0, tables.indices[step])
+            for step in range(start, start + count)]
+
+
+def phase_kernels(device, scene, launches: int, train) -> None:
+    """Kernel rows; ``launches`` are the sweep's, ``train["launches"]`` the
+    train CLI run's, split by batch size."""
+    scene_dev = scene.device_scene(device)
     rows = torch.arange(BATCH_ROWS, device=device, dtype=torch.int32)
     cols = torch.arange(WIDTH, device=device, dtype=torch.int32)
     band = torch.stack([cols.repeat(BATCH_ROWS), rows.repeat_interleave(WIDTH)], dim=1)
     # 20 consecutive bands, so each call reads scene rows the last one did not
     bands = [band.add(torch.tensor([0, 1], dtype=torch.int32, device=device),
                       alpha=min(i * BATCH_ROWS, HEIGHT - BATCH_ROWS)) for i in range(20)]
-    # in-range indices for the library call: every band lies inside the padded scene
-    offs = torch.arange(k, device=device)
-    index_pairs = [((c[:, 1, None] + offs)[:, :, None], (c[:, 0, None] + offs)[:, None, :])
-                   for c in bands]
-    batch = bands[0].shape[0]
+    rows = [_gather_row(scene_dev, bands, launches)]
+    # the training path's shapes: the step's batch and the eval drain's
+    tables, train_launches = train["tables"], train["launches"]
+    rows.append(_gather_row(scene_dev, _training_batches(tables, 0, 21), train_launches["steps"],
+                            " (training step)"))
+    train_coords = tables.coords
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    eval_batches = [train_coords.index_select(0, torch.randperm(
+        train_coords.shape[0], generator=gen, device=device)[:EVAL_BATCH]) for _ in range(21)]
+    rows.append(_gather_row(scene_dev, eval_batches, train_launches["eval_batches"],
+                            " (eval drain; its launches include the test drains' smaller batches)"))
+    emit({"kernels": rows})
 
-    before = window_gather_cuda.launches
-    err = 0.0
-    for coords in bands[:n_bands]:
-        err = max(err, float((window_gather_cuda(scene_dev, coords, k)
-                              - gather_patches_torch(scene_dev, coords, k)).abs().max()))
-    torch.cuda.synchronize()
-    ms = statistics.median(_event_times(lambda c: window_gather_cuda(scene_dev, c, k), bands))
-    plain_ms = statistics.median(_event_times(lambda c: gather_patches_torch(scene_dev, c, k),
-                                              bands))
-    library_ms = statistics.median(_event_times(lambda yx: scene_dev[yx[0], yx[1]], index_pairs))
-    window_gather_cuda.launches = before
 
-    # bytes the function must move for one band: each output float written
-    # once, each distinct scene pixel it reads read once, the coordinates read once
-    ys, xs = index_pairs[0]
-    distinct_pixels = int(torch.unique((ys * wp + xs).reshape(-1)).numel())
-    out_bytes = batch * k * k * channels * 4
-    read_bytes = distinct_pixels * channels * 4 + batch * 2 * 4
-    bound_ms = (out_bytes + read_bytes) / HBM_BYTES_PER_S * 1e3
-    check(err == 0.0, f"window_gather differs from its plain version at the band shape: {err}")
-    emit({"kernels": [{
-        "name": "window_gather", "route": "cuda",
-        "source": "hypelcnn_tpu_torch/csrc/window_gather.cu",
-        "replaces": "hypelcnn_tpu/ops/window_gather.py:183",
-        "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-        "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": library_ms,
-        "shape": f"{batch}x{k}x{k}x{channels} f32",
-        "bytes_written": out_bytes, "bytes_read": read_bytes}]})
+def _device_rows(prof) -> list:
+    """(kernel, device ms, calls) by device time; the ranges that
+    ``record_function`` annotates on the device timeline are not kernels and
+    are left out."""
+    rows = [(e.key, e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)]
+    return sorted(rows, key=lambda row: -row[1])
 
 
 def phase_profile(device, scene, module) -> None:
@@ -313,12 +564,38 @@ def phase_profile(device, scene, module) -> None:
     with torch.profiler.profile(activities=activities) as prof:
         predict_full_scene(module, scene, device=device)
         torch.cuda.synchronize()
-    rows = [(e.key, e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
-    rows.sort(key=lambda row: -row[1])
+    rows = _device_rows(prof)
     busy_ms = sum(row[1] for row in rows)
+    idle = 1 - busy_ms / untraced_ms
     emit({"phase": "profile", "untraced_sweep_ms": untraced_ms, "device_busy_ms": busy_ms,
-          "device_idle_share": max(0.0, 1 - busy_ms / untraced_ms),
+          "device_idle_share": max(0.0, idle), "device_idle_share_raw": idle,
+          "top": [{"name": name[:120], "ms": ms, "calls": count} for name, ms, count in rows[:20]]})
+
+
+def phase_profile_train(train) -> None:
+    """Device time by kernel over 50 traced training steps, against the
+    untraced wall time of the 50 steps just before them."""
+    trainer, state, tables, start = train["trainer"], train["state"], train["tables"], \
+        train["next_step"]
+    untraced_ms = _timed_steps(trainer, state, tables, start, 50) * 1e3
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:
+        for step in range(start + 50, start + 100):
+            trainer.train_step(state, tables, step)
+        torch.cuda.synchronize()
+    rows = _device_rows(prof)
+    busy_ms = sum(row[1] for row in rows)
+    check(busy_ms > 0, "the profiler saw no device time")
+    # the tracer can miss a kernel at the edge of the window (49 of 50 seen
+    # once); that every step runs the gather is the train phase's exact count
+    gather = [row for row in rows if "window_gather" in row[0]]
+    check(len(gather) == 1 and 0 < gather[0][2] <= 50, f"gather kernels in the trace: {gather}")
+    idle = 1 - busy_ms / untraced_ms
+    emit({"phase": "profile_train", "steps": 50, "untraced_ms": untraced_ms,
+          "device_busy_ms": busy_ms, "device_idle_share": max(0.0, idle),
+          "device_idle_share_raw": idle,
+          "kernel_launches": sum(row[2] for row in rows),
+          "gather_us_per_launch": gather[0][1] * 1e3 / gather[0][2],
           "top": [{"name": name[:120], "ms": ms, "calls": count} for name, ms, count in rows[:20]]})
 
 
@@ -331,9 +608,15 @@ def main() -> int:
     phase_build()
     phase_kernel_vs_plain(device)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as work:
-        scene, module, launches = phase_infer_all(device, Path(work))
-    phase_kernels(device, scene, launches)
+        scene, module, launches, macs = phase_infer_all(device, Path(work))
+        data = _training_data()
+        train = phase_train(device, Path(work), data, macs)
+        phase_train_vs_cpu(device, data, train["params"])
+        phase_resume(device, train)
+        phase_infer_trained(device, Path(work), train)
+    phase_kernels(device, scene, launches, train)
     phase_profile(device, scene, module)
+    phase_profile_train(train)
     torch.cuda.synchronize()
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})

@@ -1,0 +1,172 @@
+"""Classification training CLI (``hypelcnn_tpu/apps/train_for_classification.py``).
+
+The same flags and defaults and the same log-dir suffix codec, plus
+``--device`` (``cuda`` unless asked for ``cpu``; asking for CUDA where there
+is none raises before anything is read or written)::
+
+    python -m hypelcnn_tpu_torch.apps.train_for_classification \\
+        --loader_name=SyntheticDataLoader --path="synthetic://?h=349&w=1905&bands=144&classes=15" \\
+        --model_name=HYPELCNNModel --importer_name=GeneratorImporter --neighborhood=1 \\
+        --algorithm_param_path=configs/modelconfigs/alg_param_hypelcnn.json --batch_size=48 \\
+        --step=600 --save_checkpoint_steps=200 --base_log_path=LOG_ROOT
+
+The run writes ``<base_log_path>/<suffix>/checkpoints/<step>/state.pt``, which
+``infer_for_classification --base_log_path=<base_log_path>/<suffix>`` reads. A
+log dir that already holds a checkpoint is resumed from: at or past
+``--step`` nothing trains, the printed loss is ``nan`` and the accuracies are
+those of the restored model.
+
+Not ported yet: ``--augment_data_with_shadow`` (the GAN stack, ROADMAP.md A12)
+and ``--flag_config_file_opt`` (hyperparameter search, A14).
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import time
+
+from hypelcnn_tpu_torch.core.config import (
+    add_parse_cmds_for_device,
+    add_parse_cmds_for_importers,
+    add_parse_cmds_for_loaders,
+    add_parse_cmds_for_loggers,
+    add_parse_cmds_for_models,
+    add_parse_cmds_for_opt,
+    add_parse_cmds_for_trainers,
+    load_algorithm_params,
+    type_ensure_strtobool,
+)
+from hypelcnn_tpu_torch.core.platform import resolve_device
+from hypelcnn_tpu_torch.core.registry import get_importer_from_name, get_model_from_name
+from hypelcnn_tpu_torch.core.rng import set_run_seed
+from hypelcnn_tpu_torch.data.augmentation import AugmentationInfo
+from hypelcnn_tpu_torch.train.trainer import ClassificationTrainer, TrainingResult
+from hypelcnn_tpu_torch.utils.text import path_leaf, replace_abbrs
+
+
+def add_parse_cmds_for_app(parser) -> None:
+    parser.add_argument("--perform_validation", nargs="?", const=True, type=type_ensure_strtobool,
+                        default=False,
+                        help="If true, performs validation after training phase.")
+    parser.add_argument("--augment_data_with_rotation", nargs="?", const=True,
+                        type=type_ensure_strtobool, default=False,
+                        help="If true, input data is augmented with synthetic rotational(90 degrees) input.")
+    parser.add_argument("--augment_data_with_spectral", nargs="?", const=True, type=float,
+                        default=None,
+                        help="If given, input data is augmented with spectral ratio.")
+    parser.add_argument("--augment_data_with_shadow", nargs="?", const=True, type=str,
+                        default=None,
+                        help="Given a method name, input data is augmented with shadow data(cycle_gan or simple")
+    parser.add_argument("--augment_data_with_reflection", nargs="?", const=True,
+                        type=type_ensure_strtobool, default=False,
+                        help="If true, input data is augmented with synthetic reflection input.")
+    parser.add_argument("--augmentation_random_threshold", nargs="?", type=float, default=0.5,
+                        help="Augmentation randomization threshold.")
+    parser.add_argument("--save_checkpoint_steps", nargs="?", type=int, default=2000,
+                        help="Save frequency of the checkpoint")
+    parser.add_argument("--validation_steps", nargs="?", type=int, default=40000,
+                        help="Validation frequency")
+    parser.add_argument("--all_data_shuffle_ratio", nargs="?", type=float, default=None,
+                        help="If given as a valid ratio, validation and training data is "
+                             "shuffled and redistributed")
+    parser.add_argument("--log_model_params", nargs="?", const=True, type=type_ensure_strtobool,
+                        default=False,
+                        help="If added, logs model histograms.")
+
+
+def get_log_suffix(flags) -> str:
+    """Log-dir naming codec."""
+    abbreviations = {"model": "mdl", "dataloader": "ldr", "alg_param_": "p"}
+    if flags.train_ratio > 1.0:
+        trn_ratio_str = f"{int(flags.train_ratio):d}"
+    else:
+        trn_ratio_str = f"{flags.train_ratio:.2f}".replace(".", "")
+    patch_size = flags.neighborhood * 2 + 1
+    suffix = (f"{flags.loader_name.lower():s}_{flags.model_name.lower():s}_trn{trn_ratio_str:s}_"
+              f"{os.path.splitext(path_leaf(flags.algorithm_param_path))[0].lower()}_"
+              f"{patch_size:d}x{patch_size:d}")
+    if flags.augment_data_with_shadow is not None:
+        suffix += (f"_{flags.augment_data_with_shadow}"
+                   + f"_aug{flags.augmentation_random_threshold:.2f}".replace(".", ""))
+    if flags.augment_data_with_spectral is not None:
+        suffix += f"_spectral{flags.augment_data_with_spectral:.3f}".replace(".", "")
+    return replace_abbrs(suffix, abbreviations)
+
+
+def perform_an_episode(flags, algorithm_params, model, base_log_path, device) -> TrainingResult:
+    """One training episode on ``device``."""
+    print("Args:", json.dumps(vars(flags), indent=3))
+    if flags.augment_data_with_shadow is not None:
+        raise NotImplementedError("--augment_data_with_shadow needs the GAN stack, which is "
+                                  "not ported yet (ROADMAP.md A12)")
+    set_run_seed()
+
+    data_importer = get_importer_from_name(flags.importer_name)
+    data = data_importer.read_data_set(flags.loader_name, flags.path,
+                                       flags.train_ratio, flags.test_ratio,
+                                       flags.neighborhood)
+
+    augmentation_info = AugmentationInfo(
+        perform_rotation_augmentation=flags.augment_data_with_rotation,
+        perform_reflection_augmentation=flags.augment_data_with_reflection,
+        perform_spectral_augmentation=flags.augment_data_with_spectral or 0.0)
+
+    batch_size = algorithm_params["batch_size"]
+    n_train = data.sample_set.training_targets.shape[0]
+    required_steps = flags.step if flags.epoch is None else (n_train * flags.epoch) // batch_size
+    print(f"Steps: {required_steps:d}, Algorithm Params: {algorithm_params}")
+
+    trainer = ClassificationTrainer(
+        model=model, class_count=data.class_count, algorithm_params=algorithm_params,
+        scene=data.scene, sample_set=data.sample_set,
+        augmentation_info=augmentation_info,
+        log_dir=base_log_path,
+        save_checkpoint_steps=flags.save_checkpoint_steps,
+        validation_cadence=flags.validation_steps if flags.perform_validation else None,
+        sources=data.sources, data_shape=data.data_shape,
+        log_model_params=bool(flags.log_model_params), device=device)
+
+    start = time.time()
+    result = trainer.fit(required_steps, batch_size,
+                         progress_callback=lambda s, l: print(f"step {s}: loss={l:.4f}"))
+    print(f"Done training for {time.time() - start:.3f} sec")
+
+    if flags.perform_validation:
+        print(f"Validation accuracy={result.validation_accuracy:g}, "
+              f"Testing accuracy={result.test_accuracy:g}, loss={result.loss:.2f}")
+    else:
+        print(f"Testing accuracy={result.test_accuracy:g}, loss={result.loss:.2f}")
+    return result
+
+
+def main(argv=None) -> TrainingResult:
+    parser = argparse.ArgumentParser()
+    add_parse_cmds_for_loaders(parser)
+    add_parse_cmds_for_loggers(parser)
+    add_parse_cmds_for_trainers(parser)
+    add_parse_cmds_for_models(parser)
+    add_parse_cmds_for_importers(parser)
+    add_parse_cmds_for_device(parser)
+    add_parse_cmds_for_app(parser)
+    add_parse_cmds_for_opt(parser)
+    flags, _ = parser.parse_known_args(argv)
+    device = resolve_device(flags.device)
+
+    nn_model = get_model_from_name(flags.model_name)
+    if flags.flag_config_file_opt:
+        raise NotImplementedError("--flag_config_file_opt needs the hyperparameter search "
+                                  "(tune/search.py), which is not ported yet (ROADMAP.md A14)")
+    print("Running on training mode")
+    algorithm_params = load_algorithm_params(nn_model.default_params(),
+                                             flags.algorithm_param_path)
+    if not algorithm_params:
+        raise IOError("Algorithm parameter file is not given")
+    algorithm_params["batch_size"] = flags.batch_size
+    return perform_an_episode(flags, algorithm_params, nn_model,
+                              os.path.join(flags.base_log_path, get_log_suffix(flags)), device)
+
+
+if __name__ == "__main__":
+    main()

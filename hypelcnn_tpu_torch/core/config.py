@@ -1,12 +1,25 @@
 """CLI flag groups, with the names and defaults of ``hypelcnn_tpu/core/config.py``.
 
-Only the groups the inference CLI uses are here, plus ``--device``.
+The groups of the train and infer CLIs, plus ``--device``.
 """
 
 from __future__ import annotations
 
 import json
 import os
+from typing import Any
+
+
+def type_ensure_strtobool(val: Any) -> bool:
+    """Bool-ish CLI string -> bool (distutils.strtobool semantics)."""
+    truthy = {"y", "yes", "t", "true", "on", "1"}
+    falsy = {"n", "no", "f", "false", "off", "0"}
+    sval = str(val).strip().lower()
+    if sval in truthy:
+        return True
+    if sval in falsy:
+        return False
+    raise ValueError(f"invalid truth value {val!r}")
 
 
 def add_parse_cmds_for_trainers(parser) -> None:
@@ -62,6 +75,15 @@ def add_parse_cmds_for_importers(parser) -> None:
                         default="InMemoryImporter",
                         help="Importer name, Values : GeneratorImporter, InMemoryImporter, "
                              "RecordImporter")
+
+
+def add_parse_cmds_for_opt(parser) -> None:
+    parser.add_argument("--flag_config_file_opt", nargs="?", type=str, default=None,
+                        help="Flag config file for hyper parameter optimization")
+    parser.add_argument("--opt_trial_count", nargs="?", type=int, default=10,
+                        help="Trial count for the optimization part.")
+    parser.add_argument("--opt_run_count", nargs="?", type=int, default=3,
+                        help="Retry count for each trial during the optimization.")
 
 
 def add_parse_cmds_for_device(parser) -> None:

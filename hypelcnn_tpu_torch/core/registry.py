@@ -11,6 +11,7 @@ from typing import Callable, Dict
 
 _MODEL_REGISTRY: Dict[str, Callable] = {}
 _LOADER_REGISTRY: Dict[str, Callable] = {}
+_IMPORTER_REGISTRY: Dict[str, Callable] = {}
 
 
 def register_model(name: str):
@@ -23,6 +24,13 @@ def register_model(name: str):
 def register_loader(name: str):
     def deco(cls):
         _LOADER_REGISTRY[name] = cls
+        return cls
+    return deco
+
+
+def register_importer(name: str):
+    def deco(cls):
+        _IMPORTER_REGISTRY[name] = cls
         return cls
     return deco
 
@@ -46,3 +54,11 @@ def get_loader_from_name(loader_name: str, path: str):
     """Instantiate a dataset loader by name."""
     import hypelcnn_tpu_torch.data.loaders  # noqa: F401  (populate registry)
     return _resolve(_LOADER_REGISTRY, loader_name, "loader")(path)
+
+
+def get_importer_from_name(importer_name: str):
+    """Instantiate a data importer by name (``TFRecordImporter`` is ``RecordImporter``)."""
+    import hypelcnn_tpu_torch.data.importers  # noqa: F401  (populate registry)
+    if importer_name == "TFRecordImporter":
+        importer_name = "RecordImporter"
+    return _resolve(_IMPORTER_REGISTRY, importer_name, "importer")()

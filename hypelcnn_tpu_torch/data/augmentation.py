@@ -1,0 +1,94 @@
+"""Batch data augmentation on the device (``hypelcnn_tpu/data/augmentation.py``).
+
+Each op works on a ``[B, k, k, C]`` NHWC batch, with one random draw per
+example, and takes its draws either from a ``torch.Generator`` or injected
+(``k``, ``flips``, ``deltas``), so that a test can feed both frameworks the
+same numbers. Kept as in the JAX package:
+
+- the order rotation -> shadow -> reflection -> spectral;
+- rotation turns by 0, 90 or 180 degrees, never 270;
+- reflection draws left-right first, then up-down;
+- spectral deltas are negative only, uniform in ``[-amount, 0)``, one per
+  example and channel.
+
+Shadow augmentation needs the GAN stack, which is not ported yet.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+
+
+@dataclass
+class AugmentationInfo:
+    perform_shadow_augmentation: bool = False
+    perform_rotation_augmentation: bool = False
+    perform_spectral_augmentation: float = 0.0  # 0 disables; else max negative delta
+    perform_reflection_augmentation: bool = False
+
+
+def _require_shadow_unset(info: AugmentationInfo) -> None:
+    if info.perform_shadow_augmentation:
+        raise NotImplementedError("shadow augmentation needs the GAN stack, which is not "
+                                  "ported yet (ROADMAP.md A12)")
+
+
+def rotate_batch(patches: torch.Tensor, generator: Optional[torch.Generator] = None,
+                 k: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Quarter-turns in {0, 1, 2} per example, over the spatial dims (1, 2)."""
+    if k is None:
+        k = torch.randint(0, 3, (patches.shape[0],), generator=generator, device=patches.device)
+    sel = k.to(patches.device).view(-1, 1, 1, 1)
+    rot90 = torch.rot90(patches, 1, dims=(1, 2))
+    rot180 = torch.rot90(patches, 2, dims=(1, 2))
+    return torch.where(sel == 1, rot90, torch.where(sel == 2, rot180, patches))
+
+
+def reflect_batch(patches: torch.Tensor, generator: Optional[torch.Generator] = None,
+                  flips: Optional[Tuple[torch.Tensor, torch.Tensor]] = None) -> torch.Tensor:
+    """Left-right, then up-down flips, each with probability 1/2 per example.
+    ``flips`` is ``(flip_lr, flip_ud)``, boolean ``[B]``."""
+    if flips is None:
+        shape = (patches.shape[0],)
+        flip_lr = torch.rand(shape, generator=generator, device=patches.device) < 0.5
+        flip_ud = torch.rand(shape, generator=generator, device=patches.device) < 0.5
+    else:
+        flip_lr, flip_ud = flips
+    patches = torch.where(flip_lr.to(patches.device).view(-1, 1, 1, 1), patches.flip(2), patches)
+    return torch.where(flip_ud.to(patches.device).view(-1, 1, 1, 1), patches.flip(1), patches)
+
+
+def spectral_batch(patches: torch.Tensor, amount: float,
+                   generator: Optional[torch.Generator] = None,
+                   deltas: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Add a delta in ``[-amount, 0)`` per example and channel; ``deltas`` is
+    ``[B, 1, 1, C]``."""
+    if deltas is None:
+        shape = (patches.shape[0], 1, 1, patches.shape[-1])
+        deltas = torch.rand(shape, generator=generator, device=patches.device,
+                            dtype=patches.dtype) * amount - amount
+    return patches + deltas.to(patches.device)
+
+
+def augment_batch(patches: torch.Tensor, info: AugmentationInfo,
+                  generator: Optional[torch.Generator] = None,
+                  draws: Optional[Dict[str, Any]] = None) -> torch.Tensor:
+    """Apply the enabled augmentations in the JAX package's order.
+
+    Draws come from ``generator`` (rotation, then reflection, then spectral)
+    unless ``draws`` injects them under the keys ``k``, ``flips`` and
+    ``deltas``.
+    """
+    _require_shadow_unset(info)
+    draws = draws or {}
+    if info.perform_rotation_augmentation:
+        patches = rotate_batch(patches, generator, k=draws.get("k"))
+    if info.perform_reflection_augmentation:
+        patches = reflect_batch(patches, generator, flips=draws.get("flips"))
+    if info.perform_spectral_augmentation:
+        patches = spectral_batch(patches, float(info.perform_spectral_augmentation), generator,
+                                 deltas=draws.get("deltas"))
+    return patches

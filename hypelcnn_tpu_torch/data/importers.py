@@ -1,0 +1,157 @@
+"""Input-pipeline strategies ("importers"), as in ``hypelcnn_tpu/data/importers.py``.
+
+Each importer yields a :class:`PatchSource` per split, which the training
+step and the eval drains call on the device:
+
+- ``GeneratorImporter`` -> :class:`ScenePatchSource`: the padded scene lives
+  on the device and every batch of windows is cut from it there by
+  :func:`~hypelcnn_tpu_torch.ops.window_gather.gather_patches`, the CUDA
+  window gather on a CUDA scene.
+- ``InMemoryImporter`` -> :class:`ArrayPatchSource`: every split's windows are
+  cut on the host once (``Scene.get_data_point``), moved to the device once,
+  and a step selects rows of it.
+- ``RecordImporter`` reads the ``.npz`` patch cache of the record writer,
+  which is not ported yet.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any, Dict
+
+import numpy as np
+import torch
+
+from hypelcnn_tpu_torch.core.registry import get_loader_from_name, register_importer
+from hypelcnn_tpu_torch.data.loaders.base import SampleSet
+from hypelcnn_tpu_torch.ops.window_gather import gather_patches
+
+
+class PatchSource:
+    """Patch access for one split: ``gather(device_arrays(device), idx, coords)``
+    returns the ``[B, k, k, C]`` windows of the rows ``idx`` at ``coords``."""
+
+    def device_arrays(self, device) -> torch.Tensor:
+        raise NotImplementedError
+
+    def gather(self, arrays: torch.Tensor, idx: torch.Tensor, coords: torch.Tensor
+               ) -> torch.Tensor:
+        raise NotImplementedError
+
+
+class ScenePatchSource(PatchSource):
+    def __init__(self, scene):
+        self.scene = scene
+
+    def device_arrays(self, device) -> torch.Tensor:
+        return self.scene.device_scene(device)
+
+    def gather(self, arrays, idx, coords):
+        """``coords``: contiguous int32 ``[B, 2]`` (x, y) on the scene's device."""
+        return gather_patches(arrays, coords, 2 * self.scene.neighborhood + 1)
+
+
+class ArrayPatchSource(PatchSource):
+    def __init__(self, patches: np.ndarray):
+        self.patches = patches
+        self._device_patches: Dict[torch.device, torch.Tensor] = {}
+
+    def device_arrays(self, device) -> torch.Tensor:
+        device = torch.device(device)
+        patches = self._device_patches.get(device)
+        if patches is None:
+            patches = torch.from_numpy(np.ascontiguousarray(self.patches, dtype=np.float32)
+                                       ).to(device)
+            self._device_patches[device] = patches
+        return patches
+
+    def gather(self, arrays, idx, coords):
+        return arrays.index_select(0, idx)
+
+
+@dataclass
+class ImportedDataSet:
+    loader: Any
+    scene: Any
+    sample_set: SampleSet
+    class_count: int
+    data_shape: list
+    color_list: np.ndarray
+    sources: Dict[str, PatchSource]           # keys: training / test / validation
+
+    def targets(self, split: str) -> np.ndarray:
+        return {"training": self.sample_set.training_targets,
+                "test": self.sample_set.test_targets,
+                "validation": self.sample_set.validation_targets}[split]
+
+
+def _load_common(loader_name: str, path: str, neighborhood: int,
+                 train_ratio: float, test_ratio: float, normalize: bool = True):
+    loader = get_loader_from_name(loader_name, path)
+    scene = loader.load_data(neighborhood, normalize=normalize)
+    sample_set = loader.load_samples(train_ratio, test_ratio)
+    return loader, scene, sample_set
+
+
+def _gather_all_host(scene, targets: np.ndarray) -> np.ndarray:
+    """Every target's window, cut on the host."""
+    n = targets.shape[0]
+    out = np.empty((n, *scene.get_data_shape()), dtype=np.float32)
+    for i in range(n):
+        out[i] = scene.get_data_point(int(targets[i, 0]), int(targets[i, 1]))
+    return out
+
+
+class BaseImporter:
+    def read_data_set(self, loader_name: str, path: str, train_ratio: float,
+                      test_ratio: float, neighborhood: int,
+                      normalize: bool = True) -> ImportedDataSet:
+        raise NotImplementedError
+
+
+@register_importer("GeneratorImporter")
+class GeneratorImporter(BaseImporter):
+    """Windows cut on the device from the device-resident scene."""
+
+    def read_data_set(self, loader_name, path, train_ratio, test_ratio, neighborhood,
+                      normalize=True):
+        loader, scene, sample_set = _load_common(loader_name, path, neighborhood,
+                                                 train_ratio, test_ratio, normalize)
+        src = ScenePatchSource(scene)
+        return ImportedDataSet(
+            loader=loader, scene=scene, sample_set=sample_set,
+            class_count=loader.get_class_count().stop,
+            data_shape=scene.get_data_shape(),
+            color_list=loader.get_samples_color_list(),
+            sources={"training": src, "test": src, "validation": src})
+
+
+@register_importer("InMemoryImporter")
+class InMemoryImporter(BaseImporter):
+    """Windows cut on the host once per split and kept on the device. Validation
+    uses the loader's validation targets (not the test split's, as in the JAX
+    package)."""
+
+    def read_data_set(self, loader_name, path, train_ratio, test_ratio, neighborhood,
+                      normalize=True):
+        loader, scene, sample_set = _load_common(loader_name, path, neighborhood,
+                                                 train_ratio, test_ratio, normalize)
+        sources = {}
+        for split, targets in (("training", sample_set.training_targets),
+                               ("test", sample_set.test_targets),
+                               ("validation", sample_set.validation_targets)):
+            sources[split] = ArrayPatchSource(_gather_all_host(scene, targets))
+        return ImportedDataSet(
+            loader=loader, scene=scene, sample_set=sample_set,
+            class_count=loader.get_class_count().stop,
+            data_shape=scene.get_data_shape(),
+            color_list=loader.get_samples_color_list(),
+            sources=sources)
+
+
+@register_importer("RecordImporter")
+class RecordImporter(BaseImporter):
+    def read_data_set(self, loader_name, path, train_ratio, test_ratio, neighborhood,
+                      normalize=True):
+        raise NotImplementedError("RecordImporter reads the record writer's patch cache, "
+                                  "which is not ported yet (ROADMAP.md A14)")

@@ -16,6 +16,11 @@ import numpy as np
 from hypelcnn_tpu_torch.core.registry import register_loader
 from hypelcnn_tpu_torch.data.loaders.base import DataLoader, SampleSet
 from hypelcnn_tpu_torch.data.scene import Scene
+from hypelcnn_tpu_torch.data.splitters import (
+    read_targets_from_image,
+    shuffle_test_data_using_ratio,
+    shuffle_training_data_using_ratio,
+)
 
 
 @register_loader("SyntheticDataLoader")
@@ -60,9 +65,14 @@ class SyntheticDataLoader(DataLoader):
                      neighborhood=neighborhood, normalize=normalize)
 
     def load_samples(self, train_data_ratio: float, test_data_ratio: float) -> SampleSet:
-        raise NotImplementedError(
-            "load_samples needs the stratified splitters, which are not ported yet "
-            "(ROADMAP.md, queue A: splitters without scikit-learn)")
+        """Every labelled pixel, split stratified into train / validation, then
+        a stable test set carved out of train (draws from ``np.random``)."""
+        self._materialize()
+        result = read_targets_from_image(self._gt, self.get_class_count())
+        train_set, validation_set = shuffle_training_data_using_ratio(result, train_data_ratio)
+        test_set, train_set = shuffle_test_data_using_ratio(train_set, test_data_ratio)
+        return SampleSet(training_targets=train_set, test_targets=test_set,
+                         validation_targets=validation_set)
 
     def get_class_count(self) -> range:
         return range(0, self.classes)

@@ -57,6 +57,15 @@ class Scene:
         primary = self.lidar if self.lidar is not None else self.casi
         return [primary.shape[0] - padding, primary.shape[1] - padding]
 
+    def get_data_point(self, point_x: int, point_y: int) -> np.ndarray:
+        """The ``[k, k, C]`` window at (x, y), cut on the host (the in-memory importer)."""
+        k = 2 * self.neighborhood + 1
+        window = self.casi[point_y:point_y + k, point_x:point_x + k, :]
+        if self.lidar is None:
+            return window
+        return np.concatenate(
+            [window, self.lidar[point_y:point_y + k, point_x:point_x + k, :]], axis=2)
+
     def device_scene(self, device) -> torch.Tensor:
         """The fused float32 ``[Hp, Wp, C]`` scene on ``device``, built once per device."""
         device = torch.device(device)

@@ -9,6 +9,7 @@ follows from that. The plain PyTorch version of the same function is
 
 from __future__ import annotations
 
+import collections
 import ctypes
 
 import torch
@@ -66,7 +67,14 @@ def window_gather_cuda(scene: torch.Tensor, coords: torch.Tensor, patch_size: in
         raise RuntimeError("window_gather launch failed: "
                            + lib.window_gather_error_string(code).decode())
     window_gather_cuda.launches += 1
+    window_gather_cuda.launches_by_batch[batch] += 1
     return out
 
 
-window_gather_cuda.launches = 0
+def reset_launches() -> None:
+    """Set the launch count and the per-batch-size counts to 0."""
+    window_gather_cuda.launches = 0
+    window_gather_cuda.launches_by_batch = collections.Counter()
+
+
+reset_launches()

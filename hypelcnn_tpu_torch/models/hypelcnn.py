@@ -4,7 +4,8 @@
   halving and residual adds through the channel shape-matcher;
 - hierarchical spatial levels: parallel odd k x k SAME convolutions
   concatenated, a 1x1 connector conv, residual adds;
-- a log-scaled fully connected pyramid with dropout (rate ``drop_out_ratio``);
+- a log-scaled fully connected pyramid with dropout (rate ``drop_out_ratio``),
+  whose masks come from the generator passed to ``forward``;
 - a batch-normalized logit head without activation;
 - image-reconstruction heads ``image_gen_net_1..4`` that run only in train
   mode. They are built always, because a trained checkpoint holds them.
@@ -20,13 +21,18 @@ from __future__ import annotations
 
 import functools
 import math
-from typing import Any, Dict, Sequence
+from typing import Any, Dict, Optional, Sequence
 
 import torch
 from torch import nn
 
 from hypelcnn_tpu_torch.core.registry import register_model
-from hypelcnn_tpu_torch.models.base import ModelOutput, NNModel
+from hypelcnn_tpu_torch.models.base import (
+    ModelOutput,
+    NNModel,
+    reconstruction_loss,
+    softmax_cross_entropy,
+)
 from hypelcnn_tpu_torch.models.layers import SlimConv, SlimDense, multi_scale_level
 from hypelcnn_tpu_torch.ops.nn import leaky_relu, scale_in_to_out
 
@@ -48,6 +54,25 @@ DEFAULT_PARAMS: Dict[str, Any] = {
     "use_residual": True,
     "compute_dtype": "float32",
 }
+
+
+class Dropout(nn.Module):
+    """Dropout as flax computes it (``where(keep, x / keep_prob, 0)``), with its
+    mask drawn from an explicit generator, never from torch's global state.
+    In training with a rate above 0, a missing generator is an error."""
+
+    def __init__(self, rate: float):
+        super().__init__()
+        self.rate = rate
+
+    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator]) -> torch.Tensor:
+        if not self.training or self.rate == 0.0:
+            return x
+        if generator is None:
+            raise ValueError("train-mode dropout needs a generator")
+        keep_prob = 1.0 - self.rate
+        keep = torch.rand(x.shape, generator=generator, device=x.device, dtype=x.dtype) < keep_prob
+        return torch.where(keep, x / keep_prob, torch.zeros_like(x))
 
 
 class HYPELCNNModule(nn.Module):
@@ -111,7 +136,7 @@ class HYPELCNNModule(nn.Module):
             self.fc_stages.append(self._add(f"fc_{stage}",
                                             dense(element_size, element_size // degradation)))
             element_size = element_size // degradation
-        self.dropout = nn.Dropout(p["drop_out_ratio"])
+        self.dropout = Dropout(p["drop_out_ratio"])
         self.fc_final = dense(element_size, class_count, activation=None)
 
         self.image_gen_net_1 = dense(class_count, class_count * 3)
@@ -139,8 +164,10 @@ class HYPELCNNModule(nn.Module):
             x = nxt_conv + nxt if self.use_residual else nxt_conv
         return x
 
-    def forward(self, x: torch.Tensor, labels: torch.Tensor | None = None) -> ModelOutput:
-        """``x``: NHWC float32 patches ``[B, k, k, C]``."""
+    def forward(self, x: torch.Tensor, labels: torch.Tensor | None = None,
+                dropout_generator: Optional[torch.Generator] = None) -> ModelOutput:
+        """``x``: NHWC float32 patches ``[B, k, k, C]``; ``dropout_generator``
+        draws the dropout masks in train mode."""
         net0 = x.permute(0, 3, 1, 2)
         net1 = self._residual(net0, self._spectral_stack(net0, self.encoder))
         net2 = self._residual(net1, self._spectral_stack(net1, self.decoder))
@@ -149,7 +176,7 @@ class HYPELCNNModule(nn.Module):
 
         net5 = net4
         for stage in self.fc_stages:
-            net5 = self.dropout(stage(net5))
+            net5 = self.dropout(stage(net5), dropout_generator)
         net6 = self.fc_final(net5)
 
         image_gen = None
@@ -175,3 +202,10 @@ class HYPELCNNModel(NNModel):
                       data_shape: Sequence[int]) -> HYPELCNNModule:
         params = {**DEFAULT_PARAMS, **algorithm_params}
         return HYPELCNNModule(class_count, params, data_shape)
+
+    def loss(self, output: ModelOutput, labels_onehot: torch.Tensor) -> torch.Tensor:
+        """Cross-entropy, plus the reconstruction MSE in train mode."""
+        ce = softmax_cross_entropy(output.y_conv, labels_onehot)
+        if output.image_output is None:
+            return ce
+        return ce + reconstruction_loss(output)

@@ -26,7 +26,9 @@ def scale_in_to_out(input_data: torch.Tensor, output_data: torch.Tensor, dim: in
         return input_data
     if out_ch % in_ch == 0:
         return torch.repeat_interleave(input_data, out_ch // in_ch, dim=dim)
-    scale_ratio = in_ch / out_ch
-    idx = [min(round(i * scale_ratio), in_ch - 1) for i in range(out_ch)]
-    return torch.index_select(input_data, dim,
-                              torch.tensor(idx, dtype=torch.int64, device=input_data.device))
+    # the JAX package's [min(round(i * in_ch / out_ch), in_ch - 1)], made on the
+    # device: float64 products and round-half-to-even are Python's, and no
+    # host list is copied over (a copy from pageable memory waits for the queue)
+    positions = torch.arange(out_ch, dtype=torch.float64, device=input_data.device)
+    idx = torch.round(positions * (in_ch / out_ch)).clamp_(max=in_ch - 1).to(torch.int64)
+    return torch.index_select(input_data, dim, idx)

@@ -1,43 +1,57 @@
-"""Checkpoints of a model's ``state_dict``.
+"""Checkpoints of the training state.
 
 The directory layout is the JAX package's orbax manager's
 (``<log_dir>/checkpoints/<step>/``); each step directory holds one
-``torch.save`` file of ``{"step", "state_dict"}``. The trainer slice of the
-port adds ``MAX_TO_KEEP`` and auto-resume.
+``torch.save`` file of ``{"step", "state_dict"}``, plus ``"optimizer"``
+when the trainer saved it. At most ``MAX_TO_KEEP``
+steps are kept, the oldest pruned first. Everything is saved from the CPU
+and loads under ``weights_only=True``.
 """
 
 from __future__ import annotations
 
 import os
-from typing import Dict, Optional
+import shutil
+from typing import Any, Dict, List, Optional
 
 import torch
 
 CHECKPOINT_FILE = "state.pt"
+MAX_TO_KEEP = 20
 
 
 def _checkpoint_dir(log_dir: str) -> str:
     return os.path.abspath(os.path.join(log_dir, "checkpoints"))
 
 
-def save_checkpoint(log_dir: str, step: int, state_dict: Dict[str, torch.Tensor]) -> str:
-    """Write ``state_dict`` (moved to the CPU) as step ``step``; returns the file path."""
-    step_dir = os.path.join(_checkpoint_dir(log_dir), str(int(step)))
+def checkpoint_steps(log_dir: str) -> List[int]:
+    """The saved steps under ``log_dir``, oldest first."""
+    root = _checkpoint_dir(log_dir)
+    if not os.path.isdir(root):
+        return []
+    return sorted(int(name) for name in os.listdir(root)
+                  if name.isdigit() and os.path.isfile(os.path.join(root, name, CHECKPOINT_FILE)))
+
+
+def save_checkpoint(log_dir: str, step: int, state_dict: Dict[str, torch.Tensor],
+                    max_to_keep: int = MAX_TO_KEEP, **extra: Any) -> str:
+    """Write ``state_dict`` (moved to the CPU) and ``extra`` entries as step
+    ``step``, prune all but the newest ``max_to_keep`` steps; returns the file path."""
+    root = _checkpoint_dir(log_dir)
+    step_dir = os.path.join(root, str(int(step)))
     os.makedirs(step_dir, exist_ok=True)
     path = os.path.join(step_dir, CHECKPOINT_FILE)
     cpu_state = {key: value.detach().cpu() for key, value in state_dict.items()}
-    torch.save({"step": int(step), "state_dict": cpu_state}, path)
+    torch.save({**extra, "step": int(step), "state_dict": cpu_state}, path)
+    for old in checkpoint_steps(log_dir)[:-max_to_keep]:
+        shutil.rmtree(os.path.join(root, str(old)))
     return path
 
 
 def restore_checkpoint(log_dir: str) -> Optional[dict]:
-    """The latest ``{"step", "state_dict"}`` under ``log_dir``, or None when there is none."""
-    root = _checkpoint_dir(log_dir)
-    if not os.path.isdir(root):
-        return None
-    steps = [int(name) for name in os.listdir(root)
-             if name.isdigit() and os.path.isfile(os.path.join(root, name, CHECKPOINT_FILE))]
+    """The latest checkpoint dict under ``log_dir``, or None when there is none."""
+    steps = checkpoint_steps(log_dir)
     if not steps:
         return None
-    path = os.path.join(root, str(max(steps)), CHECKPOINT_FILE)
+    path = os.path.join(_checkpoint_dir(log_dir), str(steps[-1]), CHECKPOINT_FILE)
     return torch.load(path, map_location="cpu", weights_only=True)

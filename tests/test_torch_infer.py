@@ -99,11 +99,12 @@ def _write_params(tmp_path):
 def test_infer_cli_refuses_unported_domains_and_missing_checkpoints(tmp_path):
     base = ["--loader_name=SyntheticDataLoader", f"--path={SPEC}", "--device=cpu",
             f"--base_log_path={tmp_path}", f"--output_path={tmp_path}"]
-    for domain in ("sample", "gt"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="does not support"):
+        infer_for_classification.main(base + ["--domain=rgb"])
+    for domain in ("all", "sample"):
+        with pytest.raises(IOError, match="No checkpoint"):
             infer_for_classification.main(base + [f"--domain={domain}"])
-    with pytest.raises(IOError, match="No checkpoint"):
-        infer_for_classification.main(base + ["--domain=all"])
+    assert not any(tmp_path.iterdir())
 
 
 def test_checkpoint_restores_the_latest_step(tmp_path):

@@ -1,6 +1,6 @@
 """The PyTorch port stands alone: nothing in it, nor in ``chip_smoke.py``,
-imports jax, flax, optax, orbax or the JAX package, and its CLI runs on
-CUDA unless asked for the CPU."""
+imports jax, flax, optax, orbax, scikit-learn or the JAX package, and its
+CLIs run on CUDA unless asked for the CPU."""
 
 import ast
 import pathlib
@@ -12,7 +12,7 @@ import torch
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT = ROOT / "hypelcnn_tpu_torch"
-FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "hypelcnn_tpu"}
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "sklearn", "hypelcnn_tpu"}
 
 
 def _port_files():
@@ -63,4 +63,15 @@ def test_cli_without_device_refuses_to_run_without_cuda(monkeypatch, tmp_path):
         infer_for_classification.main([
             "--loader_name=SyntheticDataLoader", "--path=synthetic://?h=8&w=8&bands=3",
             f"--base_log_path={tmp_path}", f"--output_path={tmp_path}", "--domain=all"])
+    assert not any(tmp_path.iterdir())
+
+
+def test_train_cli_without_device_refuses_to_run_without_cuda(monkeypatch, tmp_path):
+    from hypelcnn_tpu_torch.apps import train_for_classification
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train_for_classification.main([
+            "--loader_name=SyntheticDataLoader", "--path=synthetic://?h=8&w=8&bands=3",
+            "--importer_name=GeneratorImporter", "--neighborhood=1", "--step=2",
+            f"--base_log_path={tmp_path}", f"--output_path={tmp_path}"])
     assert not any(tmp_path.iterdir())

@@ -12,13 +12,15 @@ import pytest
 import torch
 
 from hypelcnn_tpu_torch.core.platform import resolve_device
+from hypelcnn_tpu_torch.core.registry import get_importer_from_name
 from hypelcnn_tpu_torch.data.loaders.synthetic import SyntheticDataLoader
 from hypelcnn_tpu_torch.infer.scene_inference import predict_full_scene
 from hypelcnn_tpu_torch.kernels import build
-from hypelcnn_tpu_torch.kernels.window_gather import window_gather_cuda
+from hypelcnn_tpu_torch.kernels.window_gather import reset_launches, window_gather_cuda
 from hypelcnn_tpu_torch.models.hypelcnn import HYPELCNNModel
 from hypelcnn_tpu_torch.models.layers import init_parameters
 from hypelcnn_tpu_torch.ops.window_gather import gather_patches_torch
+from hypelcnn_tpu_torch.train.trainer import ClassificationTrainer
 
 
 @pytest.fixture
@@ -46,6 +48,44 @@ def test_window_gather_matches_plain(cuda, k, channels):
         got = window_gather_cuda(scene, coords, k)
         torch.cuda.synchronize()
         assert torch.equal(got, gather_patches_torch(scene, coords, k))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", [48, 8192])
+def test_window_gather_matches_plain_at_training_shapes(cuda, batch):
+    """The training step's batch (48) and the eval drain's (8192), k = 3,
+    C = 145, coordinates inside a GRSS2013-size scene, bit for bit."""
+    rng = np.random.default_rng(batch)
+    scene = torch.from_numpy(rng.normal(size=(351, 1907, 145)).astype(np.float32)).to(cuda)
+    coords = torch.from_numpy(np.stack([rng.integers(0, 1905, batch), rng.integers(0, 349, batch)],
+                                       axis=1).astype(np.int32)).to(cuda)
+    got = window_gather_cuda(scene, coords, 3)
+    torch.cuda.synchronize()
+    assert got.shape == (batch, 3, 3, 145)
+    assert torch.equal(got, gather_patches_torch(scene, coords, 3))
+
+
+@pytest.mark.cuda
+def test_training_step_and_eval_drain_go_through_the_kernel(cuda):
+    """One launch per training step plus one per eval batch."""
+    np.random.seed(0)
+    data = get_importer_from_name("GeneratorImporter").read_data_set(
+        "SyntheticDataLoader", "synthetic://?h=48&w=64&bands=12&classes=5&seed=3",
+        train_ratio=0.5, test_ratio=0.1, neighborhood=1)
+    params = {**HYPELCNNModel().default_params(), "filter_count": 32}
+    trainer = ClassificationTrainer(
+        model=HYPELCNNModel(), class_count=data.class_count, algorithm_params=params,
+        scene=data.scene, sample_set=data.sample_set, sources=data.sources,
+        data_shape=data.data_shape, device=cuda, test_cadence=4)
+    reset_launches()
+    result = trainer.fit(10, 16, log_every=5)
+    n_test = data.sample_set.test_targets.shape[0]
+    n_val = data.sample_set.validation_targets.shape[0]
+    evals = 2 + 1 + -(-n_val // 8192)  # test drains at 4 and 8, the final test and validation
+    assert n_test <= 8192 and 16 not in (n_test, min(n_val, 8192))
+    assert window_gather_cuda.launches == 10 + evals
+    assert window_gather_cuda.launches_by_batch[16] == 10
+    assert np.isfinite(result.loss)
 
 
 @pytest.mark.cuda

@@ -58,7 +58,14 @@ def test_scene_without_lidar_matches():
 def test_registry_and_unported_samples():
     loader = get_loader_from_name("SyntheticDataLoader", SPECS[0])
     assert isinstance(loader, SyntheticDataLoader)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        loader.load_samples(0.1, 0)
+    # the samples are ported now: every labelled pixel, and the JAX package's split
+    np.random.seed(0)
+    samples = loader.load_samples(0.1, 0)
+    np.random.seed(0)
+    expected = JaxSyntheticDataLoader(SPECS[0]).load_samples(0.1, 0)
+    assert samples.test_targets.shape[0] == 0
+    assert samples.training_targets.shape[0] + samples.validation_targets.shape[0] == 48 * 64
+    _equal(samples.training_targets, expected.training_targets)
+    _equal(samples.validation_targets, expected.validation_targets)
     with pytest.raises(ValueError):
         SyntheticDataLoader("/data/not/a/spec")
