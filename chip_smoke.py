@@ -32,11 +32,40 @@ without them. Phases, one JSON line each:
 8. ``infer_trained``: the infer CLI with ``--domain=all`` and then
    ``--domain=sample`` from the trained checkpoint.
 9. ``kernels``: each kernel's time at the main path's shapes (the sweep's
-   band, the training step's batch of 48, the eval drain's batch of 8192)
-   beside its plain version, one PyTorch library call and its bound.
+   band, the training step's batch of 48, the eval drain's batch of 8192,
+   and the families' shapes below) beside its plain version, one PyTorch
+   library call and its bound.
 10. ``profile``: device time by kernel over one traced sweep, and the
     device's idle share.
 11. ``profile_train``: the same over 50 traced training steps.
+
+Between 8 and 9, each other classifier family at the full width of its
+published JSON, on the same scene (``family_concnn``: k = 5, batch 10;
+``family_dualcnn``: k = 5, batch 48; ``family_cap``: k = 3, batch 16):
+
+- the train CLI for its steps with the ``train`` phase's augmentation; the
+  gather's launches must equal the steps plus the eval batches, counted by
+  batch size; losses finite and falling; test OA above 0.2;
+- 3 steps card against CPU from the same weights, dropout and augmentation
+  off; step 1 within 1e-4 relative;
+- the infer CLI with ``--domain all`` (one launch a band; the class map
+  equals the sweep's with the plain gather on the card) and ``--domain
+  sample`` (one launch per 4,096 targets; the map equals ``all`` but at
+  pixels whose two top logits tie to 1e-4, at most 1e-4 of the scene, since
+  cuDNN computes other batch sizes with other algorithms; not checked for
+  CAP, whose batch statistics and routing depend on the batch);
+- the step time (median of 3 runs of 50 steps after 10 warm-up steps), the
+  sweep time, peak device memory of each, device time by kernel and the
+  idle share over 20 traced steps and one traced sweep, and the sweep's
+  bound, the larger of its float32 FLOP and the bytes it must move (for CAP
+  also the traffic of this implementation's prediction vectors).
+
+Then ``fused_levels``: fused and unfused multi-scale levels give the same
+logits on 256 windows at full width, HYPELCNN and DUALCNN, and DUALCNN's
+sweep and step are timed both ways; and the ``kernels`` line gains the k = 5
+band, each family's training step and a single window (the launch floor,
+with the main path's launches at B = 1, which must be none). A last line
+before the result gives each phase's seconds.
 
 The last line is ``{"ok": true, "device": {...}}``. Any failure raises.
 """
@@ -54,6 +83,7 @@ import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -61,7 +91,7 @@ import torch
 from hypelcnn_tpu_torch.apps import infer_for_classification, train_for_classification
 from hypelcnn_tpu_torch.core.config import load_algorithm_params
 from hypelcnn_tpu_torch.core.platform import resolve_device
-from hypelcnn_tpu_torch.core.registry import get_importer_from_name
+from hypelcnn_tpu_torch.core.registry import get_importer_from_name, get_model_from_name
 from hypelcnn_tpu_torch.core.rng import set_run_seed
 from hypelcnn_tpu_torch.data.augmentation import AugmentationInfo
 from hypelcnn_tpu_torch.data.loaders.synthetic import SyntheticDataLoader
@@ -72,7 +102,7 @@ from hypelcnn_tpu_torch.infer.scene_inference import (
 from hypelcnn_tpu_torch.kernels import build
 from hypelcnn_tpu_torch.kernels.window_gather import reset_launches, window_gather_cuda
 from hypelcnn_tpu_torch.models.hypelcnn import HYPELCNNModel
-from hypelcnn_tpu_torch.models.layers import SlimBatchNorm, SlimConv, init_parameters
+from hypelcnn_tpu_torch.models.layers import SlimBatchNorm, fuse_variables, init_parameters
 from hypelcnn_tpu_torch.ops.window_gather import gather_patches_torch
 from hypelcnn_tpu_torch.train.checkpoint import checkpoint_steps, save_checkpoint
 from hypelcnn_tpu_torch.train.trainer import ClassificationTrainer
@@ -92,6 +122,34 @@ TRAIN_RATIO, TEST_RATIO = 0.10, 0.05
 TEST_CADENCE, EVAL_BATCH, SAMPLE_BATCH = 100, 8192, 4096
 SPECTRAL = 0.05
 QUEUE_SLEEP_CYCLES = 100_000_000  # ~50 ms at the H100's clocks: longer than queueing 21 calls
+CONFIGS = ROOT / "configs" / "modelconfigs"
+
+
+class Family(NamedTuple):
+    """A classifier family at the full width of its published configuration."""
+    phase: str
+    model: str
+    params_path: Path
+    neighborhood: int
+    batch: int          # the published batch, passed with --batch_size
+    steps: int          # train CLI steps
+    dropout_off: dict   # the override that turns dropout off
+
+
+HYPELCNN = Family("train", "HYPELCNNModel", PARAMS_PATH, NEIGHBORHOOD, TRAIN_BATCH, TRAIN_STEPS,
+                  {"drop_out_ratio": 0.0})
+# CONCNN and DUALCNN drop with rate 1 - drop_out_ratio; CAP has no dropout
+FAMILIES = [
+    Family("family_concnn", "CONCNNModel", CONFIGS / "alg_param_concnn.json", 2, 10, 300,
+           {"drop_out_ratio": 1.0}),
+    Family("family_dualcnn", "DUALCNNModel", CONFIGS / "alg_param_dualcnn.json", 2, 48, 300,
+           {"drop_out_ratio": 1.0}),
+    Family("family_cap", "CAPModel", CONFIGS / "alg_param_capn.json", 1, 16, 300, {}),
+]
+FAMILY_OA = 0.2  # chance is 1/15
+FUSED_PAIRS = 10  # DUALCNN step pairs, unfused against fused
+# the gather's launches by batch size in each main-path run (CLI runs), in order
+MAIN_PATH_RUNS: list = []
 
 
 def emit(record: dict) -> None:
@@ -101,6 +159,21 @@ def emit(record: dict) -> None:
 def check(condition: bool, message: str) -> None:
     if not condition:
         raise RuntimeError(message)
+
+
+def _note_main_path() -> dict:
+    """The gather's launches by batch size since the last reset, noted as
+    one main-path run's."""
+    by_batch = dict(window_gather_cuda.launches_by_batch)
+    MAIN_PATH_RUNS.append(by_batch)
+    return by_batch
+
+
+def _augmentation() -> AugmentationInfo:
+    """The train CLI's augmentation in the ``train`` and family phases."""
+    return AugmentationInfo(perform_rotation_augmentation=True,
+                            perform_reflection_augmentation=True,
+                            perform_spectral_augmentation=SPECTRAL)
 
 
 def phase_device() -> str:
@@ -151,15 +224,16 @@ def phase_kernel_vs_plain(device) -> None:
     emit({"phase": "kernel_vs_plain", "cases": cases, "max_abs_err": 0.0, "exact": True})
 
 
-def _random_module(params, data_shape, patches: torch.Tensor):
-    """HYPELCNN at full width with random weights from one seeded generator.
+def _random_module(params, data_shape, patches: torch.Tensor, model: str = "HYPELCNNModel"):
+    """A family (HYPELCNN unless named) at full width with random weights
+    from one seeded generator.
 
     The batch-norm running statistics come from one train-mode pass over
     ``patches`` (dropout off, momentum 0, so they are those patches' batch
     statistics), and the batch-norm biases are then drawn at random. Zero
     means and unit variances would leave every pixel in one class.
     """
-    module = HYPELCNNModel().create_module(CLASSES, params, data_shape)
+    module = get_model_from_name(model).create_module(CLASSES, params, data_shape)
     gen = torch.Generator().manual_seed(SEED)
     init_parameters(module, gen)
     norms = [layer for layer in module.modules() if isinstance(layer, SlimBatchNorm)]
@@ -217,6 +291,7 @@ def phase_infer_all(device, work: Path):
         f"--output_path={out_dir}", "--domain=all", "--device=cuda"])
     cli_seconds = time.perf_counter() - start
     launches = window_gather_cuda.launches
+    _note_main_path()
     peak_bytes = torch.cuda.max_memory_allocated()
     check(launches == n_bands,
           f"window_gather launched {launches} times over the sweep, expected {n_bands}")
@@ -254,11 +329,8 @@ def phase_infer_all(device, work: Path):
     plain_sweep = _timed_sweeps(lambda: predict_full_scene(module, scene, device=device,
                                                           gather=gather_patches_torch))
     seconds = statistics.median(sweep)
-    # multiply-adds per pixel of the eval forward: each convolution at each of
-    # the k x k window positions (SAME-padded taps counted), then the FC pyramid
-    k = data_shape[0]
-    macs = (sum(m.Conv_0.weight.numel() for m in module.modules() if isinstance(m, SlimConv)) * k * k
-            + sum(m.Dense_0.weight.numel() for m in (*module.fc_stages, module.fc_final)))
+    # multiply-adds per pixel of the eval forward, SAME-padded taps counted
+    macs = _forward_macs(module, data_shape, device)
     sweep_flop = 2 * macs * HEIGHT * WIDTH
     emit({"phase": "infer_all", "scene": [HEIGHT, WIDTH, data_shape[2]], "patch": data_shape[0],
           "bands": n_bands, "windows": HEIGHT * WIDTH, "gather_launches": launches,
@@ -272,11 +344,12 @@ def phase_infer_all(device, work: Path):
     return scene, module, launches, macs
 
 
-def _train_args(log_root: Path, steps: int) -> list:
+def _train_args(log_root: Path, steps: int, family: Family = HYPELCNN) -> list:
     return ["--device=cuda", "--loader_name=SyntheticDataLoader", f"--path={SPEC}",
-            "--model_name=HYPELCNNModel", "--importer_name=GeneratorImporter",
-            f"--neighborhood={NEIGHBORHOOD}", f"--algorithm_param_path={PARAMS_PATH}",
-            f"--batch_size={TRAIN_BATCH}", f"--train_ratio={TRAIN_RATIO}",
+            f"--model_name={family.model}", "--importer_name=GeneratorImporter",
+            f"--neighborhood={family.neighborhood}",
+            f"--algorithm_param_path={family.params_path}",
+            f"--batch_size={family.batch}", f"--train_ratio={TRAIN_RATIO}",
             f"--test_ratio={TEST_RATIO}", f"--step={steps}",
             f"--save_checkpoint_steps={CHECKPOINT_EVERY}", "--augment_data_with_rotation",
             "--augment_data_with_reflection", f"--augment_data_with_spectral={SPECTRAL}",
@@ -310,16 +383,17 @@ def _logged_losses(log_dir: Path) -> list:
     return [(r["step"], r["value"]) for r in records if r.get("tag") == "loss"]
 
 
-def _training_data():
+def _training_data(neighborhood: int = NEIGHBORHOOD):
     """The CLI's data set, made the same way (seed, loader, split)."""
     set_run_seed()
     return get_importer_from_name("GeneratorImporter").read_data_set(
-        "SyntheticDataLoader", SPEC, TRAIN_RATIO, TEST_RATIO, NEIGHBORHOOD)
+        "SyntheticDataLoader", SPEC, TRAIN_RATIO, TEST_RATIO, neighborhood)
 
 
-def _trainer(data, params, device, augmentation=None) -> ClassificationTrainer:
+def _trainer(data, params, device, augmentation=None, model="HYPELCNNModel"
+             ) -> ClassificationTrainer:
     return ClassificationTrainer(
-        model=HYPELCNNModel(), class_count=data.class_count, algorithm_params=params,
+        model=get_model_from_name(model), class_count=data.class_count, algorithm_params=params,
         scene=data.scene, sample_set=data.sample_set, sources=data.sources,
         data_shape=data.data_shape, augmentation_info=augmentation, device=device)
 
@@ -346,7 +420,7 @@ def phase_train(device, work: Path, data, macs: int) -> dict:
     result, _ = _run_train_cli(_train_args(log_root, TRAIN_STEPS))
     cli_seconds = time.perf_counter() - start
     launches = window_gather_cuda.launches
-    by_batch = dict(window_gather_cuda.launches_by_batch)
+    by_batch = _note_main_path()
     cli_peak_bytes = torch.cuda.max_memory_allocated()
     (log_dir,) = [p for p in log_root.iterdir() if p.is_dir()]
     losses = _logged_losses(log_dir)
@@ -367,10 +441,7 @@ def phase_train(device, work: Path, data, macs: int) -> dict:
           f"checkpoints at {saved}")
 
     # steady state, through the trainer's own step, on the CLI's configuration
-    augmentation = AugmentationInfo(perform_rotation_augmentation=True,
-                                    perform_reflection_augmentation=True,
-                                    perform_spectral_augmentation=SPECTRAL)
-    trainer = _trainer(data, params, device, augmentation)
+    trainer = _trainer(data, params, device, _augmentation())
     state = trainer.init_state()
     tables = trainer.training_tables(20 + 3 * 100 + 2 * 50, TRAIN_BATCH)
     torch.cuda.reset_peak_memory_stats()
@@ -393,20 +464,28 @@ def phase_train(device, work: Path, data, macs: int) -> dict:
             "params": params}
 
 
-def phase_train_vs_cpu(device, data, params) -> None:
-    """5 steps from the same weights on the same batches, card against CPU."""
-    plain = {**params, "drop_out_ratio": 0.0}
-    weights = _trainer(data, plain, "cpu").init_state().module.state_dict()
+def _card_vs_cpu(device, data, params, family: Family, steps: int) -> dict:
+    """``steps`` steps from the same weights on the same batches, with
+    dropout and augmentation off, on the card and on the CPU."""
+    plain = {**params, **family.dropout_off}
+    weights = _trainer(data, plain, "cpu", model=family.model).init_state().module.state_dict()
     losses = {}
     for name, where in (("card", device), ("cpu", torch.device("cpu"))):
-        trainer = _trainer(data, plain, where)
+        trainer = _trainer(data, plain, where, model=family.model)
         state = trainer.init_state(weights)
-        tables = trainer.training_tables(5, TRAIN_BATCH)
-        losses[name] = [float(trainer.train_step(state, tables, step)) for step in range(5)]
+        tables = trainer.training_tables(steps, family.batch)
+        losses[name] = [float(trainer.train_step(state, tables, step)) for step in range(steps)]
     rel = [abs(g - c) / abs(c) for g, c in zip(losses["card"], losses["cpu"])]
     check(rel[0] < 1e-4, f"step 1 loss differs by {rel[0]} (relative) between card and CPU")
+    return {"losses": losses, "rel_diff": rel}
+
+
+def phase_train_vs_cpu(device, data, params) -> None:
+    """5 steps from the same weights on the same batches, card against CPU."""
+    result = _card_vs_cpu(device, data, params, HYPELCNN, 5)
+    rel = result["rel_diff"]
     check(rel[-1] < 1e-3, f"step 5 loss differs by {rel[-1]} (relative) between card and CPU")
-    emit({"phase": "train_vs_cpu", "losses": losses, "rel_diff": rel})
+    emit({"phase": "train_vs_cpu", **result})
 
 
 def phase_resume(device, train) -> None:
@@ -416,6 +495,7 @@ def phase_resume(device, train) -> None:
     reset_launches()
     result, out = _run_train_cli(_train_args(train["log_root"], RESUME_STEPS))
     launches = window_gather_cuda.launches
+    _note_main_path()
     resumed = [line for line in out.splitlines() if line.startswith("Resuming")]
     check(resumed == [f"Resuming from checkpoint at step {TRAIN_STEPS}"],
           f"the second run did not resume at step {TRAIN_STEPS}: {resumed}")
@@ -442,6 +522,7 @@ def phase_infer_trained(device, work: Path, train) -> None:
             f"--base_log_path={train['log_dir']}", f"--output_path={out_dir}",
             f"--domain={domain}", "--device=cuda"])
         launches[domain] = window_gather_cuda.launches
+        _note_main_path()
         raw, colorized = out_dir / "result_raw.tif", out_dir / "result_colorized.tif"
         check(raw.is_file() and colorized.is_file(), f"--domain={domain} did not write both TIFFs")
         check(read_tags(str(colorized))[279] == HEIGHT * WIDTH * 3, "colorized strip size")
@@ -457,6 +538,265 @@ def phase_infer_trained(device, work: Path, train) -> None:
     truth = create_target_image_via_samples(loader.load_samples(0.1, 0), (HEIGHT, WIDTH))
     emit({"phase": "infer_trained", "gather_launches": launches, "pixels_differ": differ,
           "agreement_with_truth": float((maps["all"] == truth).mean())})
+
+
+def _forward_macs(module, data_shape, device) -> int:
+    """Multiply-adds of one window's eval forward: every convolution's
+    output element times its kernel's taps, every dense layer's weights
+    (forward hooks), and CAP's capsule transform and routing products,
+    which are not layers."""
+    macs = 0
+
+    def conv_hook(layer, inputs, out):
+        nonlocal macs
+        macs += out[0].numel() * layer.weight[0].numel()
+
+    def dense_hook(layer, inputs, out):
+        nonlocal macs
+        macs += layer.weight.numel()
+
+    handles = [m.register_forward_hook(conv_hook) for m in module.modules()
+               if isinstance(m, torch.nn.Conv2d)]
+    handles += [m.register_forward_hook(dense_hook) for m in module.modules()
+                if isinstance(m, torch.nn.Linear)]
+    module.eval()
+    with torch.inference_mode():
+        module(torch.zeros((1, *data_shape), device=device))
+    for handle in handles:
+        handle.remove()
+    if hasattr(module, "digitcaps_w"):
+        d, p, q = module.digitcaps_w.shape
+        # u_hat, then each round's weighted sum and (but the last) its agreement
+        macs += d * p * q + (2 * module.iter_routing - 1) * d * q
+    return macs
+
+
+def _top_two_gap(module, scene, device, pixels: np.ndarray) -> float:
+    """The largest gap between the two top logits, relative to the largest
+    logit magnitude (at least 1), over ``pixels`` ((y, x) rows), classified
+    in one batch on the card; 0 for no pixels."""
+    if not len(pixels):
+        return 0.0
+    coords = torch.from_numpy(pixels[:, ::-1].astype(np.int32).copy()).to(device)
+    k = scene.get_data_shape()[0]
+    with torch.inference_mode():
+        logits = module.eval()(gather_patches_torch(scene.device_scene(device), coords, k)).y_conv
+    top = logits.topk(2, dim=1).values
+    scale = logits.abs().amax(dim=1).clamp(min=1)
+    return float(((top[:, 0] - top[:, 1]) / scale).max())
+
+
+def phase_family(device, work: Path, family: Family) -> dict:
+    """One classifier family at its published width through the train CLI,
+    the card-against-CPU steps, the infer CLI (``all``, then ``sample``), and
+    its step and sweep numbers."""
+    model = get_model_from_name(family.model)
+    params = {**load_algorithm_params(model.default_params(), str(family.params_path)),
+              "batch_size": family.batch}
+    data = _training_data(family.neighborhood)
+    scene, k = data.scene, 2 * family.neighborhood + 1
+    counts = {split: data.targets(split).shape[0] for split in ("training", "test", "validation")}
+    expected = _expected_launches(0, family.steps, counts["test"], counts["validation"])
+    eval_sizes = {min(EVAL_BATCH, counts["test"]), min(EVAL_BATCH, counts["validation"])}
+    check(family.batch not in eval_sizes, f"an eval batch has the step's size: {eval_sizes}")
+    log_root = work / f"{family.phase}_log"
+
+    # train CLI
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    start = time.perf_counter()
+    result, _ = _run_train_cli(_train_args(log_root, family.steps, family))
+    cli_seconds = time.perf_counter() - start
+    by_batch = _note_main_path()
+    launches = window_gather_cuda.launches
+    cli_peak_bytes = torch.cuda.max_memory_allocated()
+    (log_dir,) = [p for p in log_root.iterdir() if p.is_dir()]
+    losses = _logged_losses(log_dir)
+    measured = {"steps": by_batch.get(family.batch, 0),
+                "eval_batches": launches - by_batch.get(family.batch, 0), "total": launches}
+    check(measured == expected,
+          f"{family.model}: window_gather launches over training {measured} "
+          f"(by batch {by_batch}), expected {expected}")
+    check(len(losses) > 1 and all(math.isfinite(v) for _, v in losses),
+          f"{family.model}: non-finite or missing logged losses: {losses}")
+    check(losses[-1][1] < losses[0][1], f"{family.model}: the logged loss did not fall: {losses}")
+    check(result.test_accuracy > FAMILY_OA,
+          f"{family.model}: test OA {result.test_accuracy} is not above {FAMILY_OA}")
+    module = result.final_state.module.eval()
+
+    vs_cpu = _card_vs_cpu(device, data, params, family, 3)
+
+    # infer CLI: --domain all, then sample, from the trained checkpoint
+    maps, infer_launches, infer_seconds = {}, {}, {}
+    sweep_launches = {}
+    for domain in ("all", "sample"):
+        out_dir = work / f"{family.phase}_{domain}"
+        reset_launches()
+        start = time.perf_counter()
+        infer_for_classification.main([
+            "--loader_name=SyntheticDataLoader", f"--path={SPEC}",
+            f"--neighborhood={family.neighborhood}", f"--model_name={family.model}",
+            f"--algorithm_param_path={family.params_path}", f"--base_log_path={log_dir}",
+            f"--output_path={out_dir}", f"--domain={domain}", "--device=cuda"])
+        infer_seconds[domain] = time.perf_counter() - start
+        infer_launches[domain] = window_gather_cuda.launches
+        by_batch_infer = _note_main_path()
+        if domain == "all":
+            sweep_launches = by_batch_infer
+        raw = out_dir / "result_raw.tif"
+        check(raw.is_file() and (out_dir / "result_colorized.tif").is_file(),
+              f"{family.model}: --domain={domain} did not write both TIFFs")
+        maps[domain] = _read_tiff_strip(raw, (HEIGHT, WIDTH))
+    n_bands = (HEIGHT + BATCH_ROWS - 1) // BATCH_ROWS
+    check(infer_launches == {"all": n_bands, "sample": math.ceil(HEIGHT * WIDTH / SAMPLE_BATCH)},
+          f"{family.model}: window_gather launches in the infer CLI: {infer_launches}")
+    plain_map = predict_full_scene(module, scene, device=device, gather=gather_patches_torch)
+    check(np.array_equal(maps["all"], plain_map),
+          f"{family.model}: the CLI's class map differs from the plain gather's sweep")
+    check(int(maps["all"].max()) < CLASSES and len(np.unique(maps["all"])) > 1,
+          f"{family.model}: class ids out of range, or every pixel in one class")
+    # CAP normalizes and routes with the statistics of each batch, so its
+    # sample map (batches of 4,096) legitimately differs from the sweep's.
+    # The others run the same function on batches of another size, for
+    # which cuDNN picks other algorithms: only a pixel whose two top logits
+    # tie to rounding may change class
+    differ = np.argwhere(maps["all"] != maps["sample"])
+    sample_differ, tie_gap = len(differ), 0.0
+    if family.model != "CAPModel":
+        tie_gap = _top_two_gap(module, scene, device, differ)
+        check(sample_differ <= 1e-4 * HEIGHT * WIDTH and tie_gap < 1e-4,
+              f"{family.model}: {sample_differ} pixels differ between --domain all and "
+              f"sample, their two top logits up to {tie_gap} (relative) apart")
+
+    # numbers: the steady step and the sweep, each with its peak memory
+    trainer = _trainer(data, params, device, _augmentation(), model=family.model)
+    state = trainer.init_state()
+    tables = trainer.training_tables(10 + 3 * 50 + 2 * 20, family.batch)
+    torch.cuda.reset_peak_memory_stats()
+    _timed_steps(trainer, state, tables, 0, 10)
+    runs = [_timed_steps(trainer, state, tables, 10 + 50 * i, 50) / 50 for i in range(3)]
+    step_peak_bytes = torch.cuda.max_memory_allocated()
+    _, step_profile = _steps_profile(trainer, state, tables, 160, 20, top=8)
+    torch.cuda.reset_peak_memory_stats()
+    sweep = _timed_sweeps(lambda: predict_full_scene(module, scene, device=device))
+    sweep_peak_bytes = torch.cuda.max_memory_allocated()
+    check(np.array_equal(predict_full_scene(module, scene, device=device), plain_map),
+          f"{family.model}: the kernel sweep's class map differs from the plain gather's")
+    _, sweep_profile = _sweep_profile(device, scene, module, top=8)
+
+    macs = _forward_macs(module, data.data_shape, device)
+    windows = n_bands * BATCH_ROWS * WIDTH  # the last band overlaps the one before
+    flop_bound = 2 * macs * windows / FP32_FLOP_PER_S
+    record = {"phase": family.phase, "model": family.model,
+              "config": str(family.params_path.relative_to(ROOT)), "patch": k,
+              "batch": family.batch, "steps": family.steps, "targets": counts,
+              "gather_launches": measured, "expected_launches": expected,
+              "gather_launches_by_batch": {str(b): n for b, n in sorted(by_batch.items())},
+              "logged_losses": losses, "test_oa": result.test_accuracy,
+              "cli_seconds": cli_seconds, "cli_peak_device_bytes": cli_peak_bytes,
+              "card_vs_cpu": vs_cpu, "infer_launches": infer_launches,
+              "infer_cli_seconds": infer_seconds, "sample_pixels_differ": sample_differ,
+              "sample_differ_top_two_gap": tie_gap,
+              "classes_in_map": len(np.unique(maps["all"])),
+              "step_seconds": statistics.median(runs), "step_runs": runs,
+              "step_peak_device_bytes": step_peak_bytes,
+              "sweep_seconds": statistics.median(sweep), "sweep_runs": sweep,
+              "sweep_peak_device_bytes": sweep_peak_bytes, "profile_step": step_profile,
+              "profile_sweep": sweep_profile, "flop_per_pixel": 2 * macs,
+              "sweep_flop_bound_seconds": flop_bound,
+              "parameters": sum(p.numel() for p in module.parameters())}
+    # the function's bound: its FLOP, or the bytes it must move (the device
+    # scene and the weights read once, the uint8 class map written once)
+    io_bytes = (scene.device_scene(device).numel() + record["parameters"]) * 4 + HEIGHT * WIDTH
+    io_bound = io_bytes / HBM_BYTES_PER_S
+    record.update({"sweep_io_bytes": io_bytes, "sweep_bytes_bound_seconds": io_bound,
+                   "sweep_bound_seconds": max(flop_bound, io_bound),
+                   "sweep_bound_by": "bytes" if io_bound > flop_bound else "operations"})
+    if family.model == "CAPModel":
+        # this implementation's traffic, not the function's: u_hat
+        # ([data_size, classes*dco] a window) is written once, read by every
+        # round's weighted sum and by each agreement but the last
+        d, _, q = module.digitcaps_w.shape
+        u_hat_bytes = windows * d * q * 4
+        passes = 2 * module.iter_routing
+        record.update({"u_hat_bytes_per_band": u_hat_bytes // n_bands, "u_hat_passes": passes,
+                       "u_hat_traffic_bound_seconds": passes * u_hat_bytes / HBM_BYTES_PER_S})
+    emit(record)
+    return {"family": family, "data": data, "params": params, "scene": scene, "tables": tables,
+            "train_launches": by_batch, "sweep_launches": sweep_launches}
+
+
+def phase_fused_levels(device, scene3, dual) -> None:
+    """Fused and unfused multi-scale levels give the same logits at full
+    width, on 256 windows of the scene (HYPELCNN at k = 3, DUALCNN at k = 5).
+    Then DUALCNN's sweep and step are timed both ways; ``dual`` is the
+    ``family_dualcnn`` phase's result."""
+    results = {}
+    rng = np.random.default_rng(SEED)
+    coords = torch.from_numpy(np.stack([rng.integers(0, WIDTH, 256),
+                                        rng.integers(0, HEIGHT, 256)], axis=1).astype(np.int32))
+    for model_name, path, scene in (("HYPELCNNModel", PARAMS_PATH, scene3),
+                                    ("DUALCNNModel", dual["family"].params_path, dual["scene"])):
+        model = get_model_from_name(model_name)
+        params = load_algorithm_params(model.default_params(), str(path))
+        data_shape = scene.get_data_shape()
+        patches = window_gather_cuda(scene.device_scene(device), coords.to(device), data_shape[0])
+        unfused = _random_module(params, data_shape, patches.cpu(), model_name)
+        fused = model.create_module(CLASSES, {**params, "fuse_level_convs": True}, data_shape)
+        fused.load_state_dict(fuse_variables(unfused.state_dict()), strict=True)
+        with torch.inference_mode():
+            expected = unfused.to(device).eval()(patches).y_conv
+            got = fused.to(device).eval()(patches).y_conv
+        err = float((got - expected).abs().max() / expected.abs().max().clamp(min=1))
+        check(bool(torch.isfinite(got).all()), f"{model_name}: non-finite fused logits")
+        check(err < 1e-4, f"{model_name}: fused and unfused logits differ by {err} (relative)")
+        results[model_name] = {"patch": data_shape[0], "logit_rel_err": err,
+                               "argmax_equal": bool(torch.equal(got.argmax(1),
+                                                                expected.argmax(1)))}
+    # the loop's last modules are DUALCNN's
+    results["DUALCNNModel"]["timed"] = _fused_timings(device, dual, unfused, fused)
+    emit({"phase": "fused_levels", "windows": 256, "models": results})
+
+
+def _fused_timings(device, dual, unfused, fused) -> dict:
+    """DUALCNN unfused and fused: the sweep (median of 3 after a warm-up)
+    with its peak memory, then the step in FUSED_PAIRS pairs of 50-step
+    runs after 10 warm-up steps each, alternating which version runs first
+    (the host-bound step drifts within a call by more than the versions
+    differ), with each version's kernel launches and idle share over 20
+    traced steps."""
+    family, scene, data = dual["family"], dual["scene"], dual["data"]
+    timed = {}
+    for name, module in (("unfused", unfused), ("fused", fused)):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        sweep = _timed_sweeps(lambda m=module: predict_full_scene(m, scene, device=device))
+        timed[name] = {"sweep_seconds": statistics.median(sweep), "sweep_runs": sweep,
+                       "sweep_peak_device_bytes": torch.cuda.max_memory_allocated()}
+    steppers = {}
+    for name, fuse in (("unfused", False), ("fused", True)):
+        trainer = _trainer(data, {**dual["params"], "fuse_level_convs": fuse}, device,
+                           _augmentation(), model=family.model)
+        state = trainer.init_state()
+        tables = trainer.training_tables(10 + FUSED_PAIRS * 50 + 40, family.batch)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        _timed_steps(trainer, state, tables, 0, 10)
+        timed[name]["step_peak_device_bytes"] = torch.cuda.max_memory_allocated()
+        steppers[name] = (trainer, state, tables)
+    runs = {"unfused": [], "fused": []}
+    for pair in range(FUSED_PAIRS):
+        for name in (("unfused", "fused") if pair % 2 == 0 else ("fused", "unfused")):
+            trainer, state, tables = steppers[name]
+            runs[name].append(_timed_steps(trainer, state, tables, 10 + 50 * pair, 50) / 50)
+    for name, (trainer, state, tables) in steppers.items():
+        _, profile = _steps_profile(trainer, state, tables, 10 + FUSED_PAIRS * 50, 20, top=0)
+        timed[name].update({"step_seconds": statistics.median(runs[name]),
+                            "step_runs": runs[name],
+                            "step_launches": profile["kernel_launches"] / 20,
+                            "step_idle_share": profile["device_idle_share"]})
+    timed["fused_step_wins"] = sum(f < u for u, f in zip(runs["unfused"], runs["fused"]))
+    return timed
 
 
 def _event_times(fn, inputs) -> list:
@@ -478,10 +818,10 @@ def _event_times(fn, inputs) -> list:
     return [s.elapsed_time(e) for s, e in times]
 
 
-def _gather_row(scene_dev, batches, launches: int, shape_note: str = "") -> dict:
+def _gather_row(scene_dev, batches, launches: int, shape_note: str = "",
+                k: int = 2 * NEIGHBORHOOD + 1) -> dict:
     """One kernel row: the CUDA gather on each coordinate batch, bit-exact
     against the plain version, then timed beside it and the library call."""
-    k = 2 * NEIGHBORHOOD + 1
     hp, wp, channels = scene_dev.shape
     offs = torch.arange(k, device=scene_dev.device)
     # in-range indices for the library call: every batch lies inside the padded scene
@@ -520,17 +860,22 @@ def _training_batches(tables, start: int, count: int) -> list:
             for step in range(start, start + count)]
 
 
-def phase_kernels(device, scene, launches: int, train) -> None:
-    """Kernel rows; ``launches`` are the sweep's, ``train["launches"]`` the
-    train CLI run's, split by batch size."""
-    scene_dev = scene.device_scene(device)
+def _bands(device, count: int = 20) -> list:
+    """The coordinates of ``count`` consecutive sweep bands, so each call
+    reads scene rows the last one did not."""
     rows = torch.arange(BATCH_ROWS, device=device, dtype=torch.int32)
     cols = torch.arange(WIDTH, device=device, dtype=torch.int32)
     band = torch.stack([cols.repeat(BATCH_ROWS), rows.repeat_interleave(WIDTH)], dim=1)
-    # 20 consecutive bands, so each call reads scene rows the last one did not
-    bands = [band.add(torch.tensor([0, 1], dtype=torch.int32, device=device),
-                      alpha=min(i * BATCH_ROWS, HEIGHT - BATCH_ROWS)) for i in range(20)]
-    rows = [_gather_row(scene_dev, bands, launches)]
+    return [band.add(torch.tensor([0, 1], dtype=torch.int32, device=device),
+                     alpha=min(i * BATCH_ROWS, HEIGHT - BATCH_ROWS)) for i in range(count)]
+
+
+def phase_kernels(device, scene, launches: int, train, families: dict) -> None:
+    """Kernel rows; ``launches`` are the sweep's, ``train["launches"]`` the
+    train CLI run's, split by batch size; ``families`` the family phases'
+    results, with their launches by batch size."""
+    scene_dev = scene.device_scene(device)
+    rows = [_gather_row(scene_dev, _bands(device), launches)]
     # the training path's shapes: the step's batch and the eval drain's
     tables, train_launches = train["tables"], train["launches"]
     rows.append(_gather_row(scene_dev, _training_batches(tables, 0, 21), train_launches["steps"],
@@ -541,6 +886,26 @@ def phase_kernels(device, scene, launches: int, train) -> None:
         train_coords.shape[0], generator=gen, device=device)[:EVAL_BATCH]) for _ in range(21)]
     rows.append(_gather_row(scene_dev, eval_batches, train_launches["eval_batches"],
                             " (eval drain; its launches include the test drains' smaller batches)"))
+    # a single window: the launch floor; its launches are those of every
+    # main-path run at B = 1, and there should be none
+    single = sum(run.get(1, 0) for run in MAIN_PATH_RUNS)
+    check(single == 0, f"the main path launched the gather {single} times at B = 1")
+    rows.append(_gather_row(scene_dev, [c[:1] for c in _training_batches(tables, 0, 21)], single,
+                            " (one window: the launch floor; not a main-path shape)"))
+    # the shapes the other families add: the k = 5 band of CONCNN's and
+    # DUALCNN's sweeps, and each family's training step
+    band = WIDTH * BATCH_ROWS
+    k5 = [families[name] for name in ("family_concnn", "family_dualcnn")]
+    rows.append(_gather_row(k5[0]["scene"].device_scene(device), _bands(device),
+                            sum(f["sweep_launches"][band] for f in k5),
+                            " (k = 5 sweep band: CONCNN and DUALCNN)", k=5))
+    for name in ("family_concnn", "family_dualcnn", "family_cap"):
+        fam = families[name]
+        family = fam["family"]
+        rows.append(_gather_row(
+            fam["scene"].device_scene(device), _training_batches(fam["tables"], 0, 21),
+            fam["train_launches"][family.batch],
+            f" ({family.model} training step)", k=2 * family.neighborhood + 1))
     emit({"kernels": rows})
 
 
@@ -554,22 +919,50 @@ def _device_rows(prof) -> list:
     return sorted(rows, key=lambda row: -row[1])
 
 
-def phase_profile(device, scene, module) -> None:
-    """Device time by kernel over one full-scene sweep (``torch.profiler``).
-    Tracing slows the host several times over, so the idle share compares
-    the traced device time with an untraced sweep just before it."""
+def _traced(fn, untraced_ms: float, top: int) -> tuple:
+    """Run ``fn`` under ``torch.profiler``; (kernel rows, a summary with the
+    device's busy time and idle share against ``untraced_ms``, the wall time
+    of the same work untraced just before: tracing slows the host several
+    times over)."""
     activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    untraced_ms = statistics.median(_timed_sweeps(
-        lambda: predict_full_scene(module, scene, device=device), runs=1)) * 1e3
     with torch.profiler.profile(activities=activities) as prof:
-        predict_full_scene(module, scene, device=device)
+        fn()
         torch.cuda.synchronize()
     rows = _device_rows(prof)
     busy_ms = sum(row[1] for row in rows)
+    check(busy_ms > 0, "the profiler saw no device time")
     idle = 1 - busy_ms / untraced_ms
-    emit({"phase": "profile", "untraced_sweep_ms": untraced_ms, "device_busy_ms": busy_ms,
-          "device_idle_share": max(0.0, idle), "device_idle_share_raw": idle,
-          "top": [{"name": name[:120], "ms": ms, "calls": count} for name, ms, count in rows[:20]]})
+    return rows, {"untraced_ms": untraced_ms, "device_busy_ms": busy_ms,
+                  "device_idle_share": max(0.0, idle), "device_idle_share_raw": idle,
+                  "kernel_launches": sum(row[2] for row in rows),
+                  "top": [{"name": name[:120], "ms": ms, "calls": count}
+                          for name, ms, count in rows[:top]]}
+
+
+def _sweep_profile(device, scene, module, top: int = 20) -> tuple:
+    """Device time by kernel over one traced full-scene sweep."""
+    untraced_ms = statistics.median(_timed_sweeps(
+        lambda: predict_full_scene(module, scene, device=device), runs=1)) * 1e3
+    return _traced(lambda: predict_full_scene(module, scene, device=device), untraced_ms, top)
+
+
+def _steps_profile(trainer, state, tables, start: int, count: int, top: int = 20) -> tuple:
+    """Device time by kernel over ``count`` traced training steps, against
+    the untraced wall time of the ``count`` steps just before them."""
+    untraced_ms = _timed_steps(trainer, state, tables, start, count) * 1e3
+
+    def steps():
+        for step in range(start + count, start + 2 * count):
+            trainer.train_step(state, tables, step)
+
+    return _traced(steps, untraced_ms, top)
+
+
+def phase_profile(device, scene, module) -> None:
+    """Device time by kernel over one full-scene sweep (``torch.profiler``)."""
+    _, summary = _sweep_profile(device, scene, module)
+    summary["untraced_sweep_ms"] = summary.pop("untraced_ms")
+    emit({"phase": "profile", **summary})
 
 
 def phase_profile_train(train) -> None:
@@ -577,26 +970,13 @@ def phase_profile_train(train) -> None:
     untraced wall time of the 50 steps just before them."""
     trainer, state, tables, start = train["trainer"], train["state"], train["tables"], \
         train["next_step"]
-    untraced_ms = _timed_steps(trainer, state, tables, start, 50) * 1e3
-    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=activities) as prof:
-        for step in range(start + 50, start + 100):
-            trainer.train_step(state, tables, step)
-        torch.cuda.synchronize()
-    rows = _device_rows(prof)
-    busy_ms = sum(row[1] for row in rows)
-    check(busy_ms > 0, "the profiler saw no device time")
+    rows, summary = _steps_profile(trainer, state, tables, start, 50)
     # the tracer can miss a kernel at the edge of the window (49 of 50 seen
     # once); that every step runs the gather is the train phase's exact count
     gather = [row for row in rows if "window_gather" in row[0]]
     check(len(gather) == 1 and 0 < gather[0][2] <= 50, f"gather kernels in the trace: {gather}")
-    idle = 1 - busy_ms / untraced_ms
-    emit({"phase": "profile_train", "steps": 50, "untraced_ms": untraced_ms,
-          "device_busy_ms": busy_ms, "device_idle_share": max(0.0, idle),
-          "device_idle_share_raw": idle,
-          "kernel_launches": sum(row[2] for row in rows),
-          "gather_us_per_launch": gather[0][1] * 1e3 / gather[0][2],
-          "top": [{"name": name[:120], "ms": ms, "calls": count} for name, ms, count in rows[:20]]})
+    emit({"phase": "profile_train", "steps": 50, **summary,
+          "gather_us_per_launch": gather[0][1] * 1e3 / gather[0][2]})
 
 
 def main() -> int:
@@ -604,20 +984,33 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this check runs only on a GPU", file=sys.stderr)
         return 1
     device = resolve_device("cuda")
-    name = phase_device()
-    phase_build()
-    phase_kernel_vs_plain(device)
+    seconds = {}
+
+    def timed(phase, fn, *args):
+        start = time.perf_counter()
+        out = fn(*args)
+        seconds[phase] = time.perf_counter() - start
+        return out
+
+    name = timed("device", phase_device)
+    timed("build", phase_build)
+    timed("kernel_vs_plain", phase_kernel_vs_plain, device)
+    families = {}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as work:
-        scene, module, launches, macs = phase_infer_all(device, Path(work))
+        scene, module, launches, macs = timed("infer_all", phase_infer_all, device, Path(work))
         data = _training_data()
-        train = phase_train(device, Path(work), data, macs)
-        phase_train_vs_cpu(device, data, train["params"])
-        phase_resume(device, train)
-        phase_infer_trained(device, Path(work), train)
-    phase_kernels(device, scene, launches, train)
-    phase_profile(device, scene, module)
-    phase_profile_train(train)
+        train = timed("train", phase_train, device, Path(work), data, macs)
+        timed("train_vs_cpu", phase_train_vs_cpu, device, data, train["params"])
+        timed("resume", phase_resume, device, train)
+        timed("infer_trained", phase_infer_trained, device, Path(work), train)
+        for family in FAMILIES:
+            families[family.phase] = timed(family.phase, phase_family, device, Path(work), family)
+    timed("fused_levels", phase_fused_levels, device, scene, families["family_dualcnn"])
+    timed("kernels", phase_kernels, device, scene, launches, train, families)
+    timed("profile", phase_profile, device, scene, module)
+    timed("profile_train", phase_profile_train, train)
     torch.cuda.synchronize()
+    emit({"phase_seconds": seconds, "total_seconds": sum(seconds.values())})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})
     return 0

@@ -9,13 +9,17 @@ variable path maps to a ``state_dict`` key by name:
 - ``.../Dense_0/kernel`` (``[in, out]``) -> ``....Dense_0.weight`` (``[out, in]``);
 - ``.../Conv_0/bias``, ``.../Dense_0/bias`` -> ``....bias``;
 - ``.../BatchNorm_0/bias`` (params), ``.../BatchNorm_0/mean|var``
-  (batch_stats) -> ``....BatchNorm_0.bias|mean|var``.
+  (batch_stats) -> ``....BatchNorm_0.bias|mean|var``;
+- a fused multi-scale level's ``..._fused/conv{k}x{k}_kernel`` (HWIO) ->
+  ``..._fused.conv{k}x{k}_kernel`` (OIHW), and its ``conv{k}x{k}_bias``;
+- CAP's top-level ``digitcaps_w`` / ``digitcaps_b`` -> the same names, as they are.
 
 Every source leaf is used exactly once; a leaf of any other name raises.
 """
 
 from __future__ import annotations
 
+import re
 from typing import Dict, Mapping, Optional, Tuple
 
 import numpy as np
@@ -31,6 +35,22 @@ _RULES = {
     ("batch_stats", "BatchNorm_0", "mean"): ("mean", None),
     ("batch_stats", "BatchNorm_0", "var"): ("var", None),
 }
+_TOP_LEVEL_RULES = {
+    ("params", "digitcaps_w"): ("digitcaps_w", None),
+    ("params", "digitcaps_b"): ("digitcaps_b", None),
+}
+_FUSED_LEAF = re.compile(r"conv\d+x\d+_(kernel|bias)")
+
+
+def _rule(collection: str, path: Tuple[str, ...]):
+    """(torch leaf, transpose) for a flax leaf path, or ``None``."""
+    if len(path) == 1:
+        return _TOP_LEVEL_RULES.get((collection, path[0]))
+    layer, leaf = path[-2:]
+    match = _FUSED_LEAF.fullmatch(leaf)
+    if collection == "params" and layer.endswith("_fused") and match:
+        return leaf, (3, 2, 0, 1) if match.group(1) == "kernel" else None
+    return _RULES.get((collection, layer, leaf))
 
 
 def _leaves(tree: Mapping, prefix: Tuple[str, ...] = ()):
@@ -48,7 +68,7 @@ def variables_to_state_dict(params: Mapping, batch_stats: Optional[Mapping] = No
     state: Dict[str, torch.Tensor] = {}
     for collection, tree in (("params", params), ("batch_stats", batch_stats or {})):
         for path, leaf in _leaves(tree):
-            rule = _RULES.get((collection, *path[-2:])) if len(path) >= 2 else None
+            rule = _rule(collection, path)
             if rule is None:
                 raise KeyError(f"no mapping for flax {collection} leaf {'/'.join(path)}")
             name, transpose = rule

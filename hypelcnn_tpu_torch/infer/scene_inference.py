@@ -19,19 +19,28 @@ INVALID_TARGET_VALUE = 255
 
 def predict_targets(module, scene, targets_xy: np.ndarray, device,
                     batch_size: int = 4096) -> np.ndarray:
-    """Predict class ids for an explicit ``[N, >=2]`` (x, y) target list."""
+    """Predict class ids for an explicit ``[N, >=2]`` (x, y) target list.
+
+    Every batch holds ``batch_size`` windows: the last one is padded with
+    coordinate (0, 0), whose predictions are dropped, as the JAX package
+    pads it. A model that normalizes with batch statistics in evaluation
+    (CAP) gives the JAX package's ids only so.
+    """
     k = 2 * scene.neighborhood + 1
+    n = targets_xy.shape[0]
+    padded = np.zeros((-(-n // batch_size) * batch_size, 2), dtype=np.int32)
+    padded[:n] = targets_xy[:, :2]
     scene_dev = scene.device_scene(device)
-    coords_all = torch.from_numpy(np.ascontiguousarray(targets_xy[:, :2], dtype=np.int32)).to(device)
+    coords_all = torch.from_numpy(padded).to(device)
     preds = []
     module.eval()
     with torch.inference_mode():
-        for start in range(0, coords_all.shape[0], batch_size):
+        for start in range(0, padded.shape[0], batch_size):
             patches = gather_patches(scene_dev, coords_all[start:start + batch_size], k)
             preds.append(torch.argmax(module(patches).y_conv, dim=1).to(torch.int32))
     if not preds:
         return np.empty((0,), dtype=np.int32)
-    return torch.cat(preds).cpu().numpy()
+    return torch.cat(preds)[:n].cpu().numpy()
 
 
 def predict_full_scene(module, scene, batch_rows: int = 16, device="cuda",

@@ -1,3 +1,3 @@
 """Model families; importing this package registers them."""
 
-from hypelcnn_tpu_torch.models import hypelcnn  # noqa: F401
+from hypelcnn_tpu_torch.models import cap, concnn, dualcnn, hypelcnn  # noqa: F401

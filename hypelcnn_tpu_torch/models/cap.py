@@ -1,0 +1,177 @@
+"""CAP, the capsule network with dynamic routing (``hypelcnn_tpu/models/cap.py``).
+
+- A VALID conv stem and a VALID PrimaryCaps conv, both batch-normalized
+  (momentum 0.999) with ReLU. Their batch norm uses the BATCH statistics in
+  evaluation too (the reference never passes ``is_training`` to tf-slim's
+  batch norm), so a window's class depends on the other windows of its
+  batch; the running statistics move only in training.
+- The PrimaryCaps output, in NHWC order, is ``data_size`` input capsules of
+  ``pco`` values. ``pco`` is read from ``digit_capsule_output_space``, the
+  reference's quirk.
+- Each input capsule's linear map to the ``class_count`` digit capsules of
+  ``dco`` values (``digitcaps_w [data_size, pco, class_count*dco]``, xavier
+  per capsule, and ``digitcaps_b``) is one batched product over the capsule
+  axis.
+- ``iter_routing`` rounds of dynamic routing: softmax coupling over the
+  classes, the mean-of-squares ``squash``, and agreement logits summed over
+  the whole batch, shared by every window of it.
+- Class scores are the digit capsules' L2 norms. In training with labels a
+  decoder (512 and 1,024 leaky-ReLU units, then a sigmoid to ``k*k*C``)
+  reconstructs the input from the label's capsule; the loss is cross-entropy
+  plus the reconstruction MSE.
+
+The prediction vectors ``u_hat`` are kept as ``[data_size, classes, dco, B]``,
+the batched product's natural output: each routing product then reads them
+as a strided matrix of the same memory, with no copy (at a sweep band of
+30,480 windows of 3x3 they are 8.4 GB).
+"""
+
+from __future__ import annotations
+
+import functools
+import math
+from typing import Any, Dict, Optional, Sequence
+
+import torch
+from torch import nn
+
+from hypelcnn_tpu_torch.core.registry import register_model
+from hypelcnn_tpu_torch.models.base import (
+    ModelOutput,
+    NNModel,
+    reconstruction_loss,
+    softmax_cross_entropy,
+)
+from hypelcnn_tpu_torch.models.layers import SlimConv, SlimDense
+from hypelcnn_tpu_torch.ops.nn import leaky_relu, squash
+
+DEFAULT_PARAMS: Dict[str, Any] = {
+    # matches configs/modelconfigs/alg_param_capn.json
+    "iter_routing": 3,
+    "conv_layer_kernel_size": 1,
+    "primary_caps_kernel_size": 1,
+    "feature_count": 256,
+    "primary_capsule_count": 32,
+    "primary_capsule_output_space": 8,
+    "digit_capsule_output_space": 16,
+    "batch_size": 16,
+    "optimizer": "AdamOptimizer",
+    "learning_rate": 1e-4,
+    "learning_rate_decay_factor": 0.96,
+    "learning_rate_decay_step": 350,
+    "lrelu_alpha": 0.18,
+    "enable_decoding": True,
+    "compute_dtype": "float32",
+}
+
+
+class CAPModule(nn.Module):
+    def __init__(self, class_count: int, params_dict: Dict[str, Any], data_shape: Sequence[int]):
+        super().__init__()
+        p = params_dict
+        if p.get("compute_dtype", "float32") != "float32":
+            raise NotImplementedError("the port computes CAP in float32 only")
+        patch, patch_w, in_channels = data_shape
+        # the reference's quirk: the primary capsules' size is read from the digit key
+        self.pco = p["digit_capsule_output_space"]
+        self.dco = p["digit_capsule_output_space"]
+        self.classes = class_count
+        self.iter_routing = p["iter_routing"]
+        self.enable_decoding = p["enable_decoding"]
+
+        def conv(cin: int, features: int, kernel: int) -> SlimConv:
+            return SlimConv(cin, features, kernel, padding="VALID", use_batch_norm=True,
+                            bn_momentum=0.999, always_batch_stats=True)
+
+        ck, pk = p["conv_layer_kernel_size"], p["primary_caps_kernel_size"]
+        self.Conv1_layer = conv(in_channels, p["feature_count"], ck)
+        primary = p["primary_capsule_count"] * self.pco
+        self.PrimaryCaps_layer = conv(p["feature_count"], primary, pk)
+        out_h, out_w = patch - ck - pk + 2, patch_w - ck - pk + 2
+        self.data_size = out_h * out_w * primary // self.pco
+        self.digitcaps_w = nn.Parameter(torch.zeros(self.data_size, self.pco,
+                                                    class_count * self.dco))
+        self.digitcaps_b = nn.Parameter(torch.zeros(self.data_size, class_count * self.dco))
+
+        act = functools.partial(leaky_relu, alpha=p["lrelu_alpha"])
+        self.decoder_fc1 = SlimDense(self.dco, 512, activation=act)
+        self.decoder_fc2 = SlimDense(512, 1024, activation=act)
+        self.decoder_fc3 = SlimDense(1024, patch * patch_w * in_channels, activation=torch.sigmoid)
+
+    @torch.no_grad()
+    def init_parameters_(self, generator: Optional[torch.Generator] = None) -> None:
+        """Xavier-uniform per input capsule (fan-in ``pco``, fan-out
+        ``classes*dco``; the capsule axis is a batch axis), zero biases."""
+        fan_in, fan_out = self.digitcaps_w.shape[1:]
+        bound = math.sqrt(6.0 / (fan_in + fan_out))
+        self.digitcaps_w.uniform_(-bound, bound, generator=generator)
+        self.digitcaps_b.zero_()
+
+    def forward(self, x: torch.Tensor, labels: Optional[torch.Tensor] = None,
+                dropout_generator: Optional[torch.Generator] = None) -> ModelOutput:
+        """``x``: NHWC float32 patches ``[B, k, k, C]``; ``labels``: one-hot
+        ``[B, classes]``, which the decoder needs in train mode. CAP has no
+        dropout; ``dropout_generator`` is accepted for the trainer's call."""
+        batch = x.shape[0]
+        d, j, c = self.data_size, self.classes, self.dco
+        net = self.PrimaryCaps_layer(self.Conv1_layer(x.permute(0, 3, 1, 2)))
+        u = net.permute(0, 2, 3, 1).reshape(batch, d, self.pco)  # NHWC order, as in JAX
+
+        # u_hat[d, q, b] = sum_p w[d, p, q] u[b, d, p] + b_lin[d, q]: one product batched over d
+        # (the bias is added in place: the product's backward does not need its output)
+        u_hat = torch.bmm(self.digitcaps_w.transpose(1, 2), u.permute(1, 2, 0))
+        u_hat.add_(self.digitcaps_b.unsqueeze(2))
+        by_class = u_hat.view(d, j, c * batch).transpose(0, 1)  # [J, D, C*B], no copy
+
+        b_ij = torch.zeros((d, j), dtype=u_hat.dtype, device=u_hat.device)
+        v = None
+        for round_ in range(self.iter_routing):
+            c_ij = torch.softmax(b_ij, dim=1)
+            s = torch.bmm(c_ij.t().unsqueeze(1), by_class).view(j, c, batch)
+            v = squash(s, dim=1)
+            if round_ + 1 < self.iter_routing:  # the last round's agreement is unused
+                agreement = torch.bmm(by_class, v.view(j, c * batch, 1)).squeeze(2)
+                b_ij = b_ij + agreement.t()
+
+        y_conv = torch.linalg.vector_norm(v, dim=1).t()  # [B, J]
+
+        decoder_out = None
+        if self.training and self.enable_decoding and labels is not None:
+            masked_v = torch.einsum("jcb,bj->bc", v, labels.to(v.dtype))
+            decoder_out = self.decoder_fc3(self.decoder_fc2(self.decoder_fc1(masked_v)))
+        return ModelOutput(y_conv=y_conv, image_output=decoder_out, image_original=x,
+                           histograms={})
+
+
+def margin_loss(logits: torch.Tensor, labels_onehot: torch.Tensor,
+                x_output: Optional[torch.Tensor] = None,
+                x_original: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The capsule margin loss (``hypelcnn_tpu/models/cap.py:margin_loss``):
+    implemented, and unused by :class:`CAPModel`, as in the reference."""
+    labels_f = labels_onehot.to(torch.float32)
+    m_plus, m_minus, lambda_val = 0.9, 0.1, 0.5
+    max_l = torch.square(torch.clamp(m_plus - logits, min=0.0))
+    max_r = torch.square(torch.clamp(logits - m_minus, min=0.0))
+    l_c = labels_f * max_l + lambda_val * (1.0 - labels_f) * max_r
+    loss = torch.mean(torch.sum(l_c, dim=1))
+    if x_output is not None:
+        origin = x_original.reshape(x_original.shape[0], -1)
+        loss = loss + 0.0005 * torch.mean(torch.square(x_output - origin))
+    return loss
+
+
+@register_model("CAPModel")
+class CAPModel(NNModel):
+    def default_params(self) -> Dict[str, Any]:
+        return dict(DEFAULT_PARAMS)
+
+    def create_module(self, class_count: int, algorithm_params: Dict[str, Any],
+                      data_shape: Sequence[int]) -> CAPModule:
+        return CAPModule(class_count, {**DEFAULT_PARAMS, **algorithm_params}, data_shape)
+
+    def loss(self, output: ModelOutput, labels_onehot: torch.Tensor) -> torch.Tensor:
+        """Cross-entropy, plus the reconstruction MSE in train mode."""
+        ce = softmax_cross_entropy(output.y_conv, labels_onehot)
+        if output.image_output is None:
+            return ce
+        return ce + reconstruction_loss(output)

@@ -3,7 +3,9 @@
 - spectral encoder/decoder stacks of 1x1 convolutions with filter doubling /
   halving and residual adds through the channel shape-matcher;
 - hierarchical spatial levels: parallel odd k x k SAME convolutions
-  concatenated, a 1x1 connector conv, residual adds;
+  concatenated (or, with ``fuse_level_convs``, one
+  :class:`~hypelcnn_tpu_torch.models.layers.FusedMultiScaleLevel`), a 1x1
+  connector conv, residual adds;
 - a log-scaled fully connected pyramid with dropout (rate ``drop_out_ratio``),
   whose masks come from the generator passed to ``forward``;
 - a batch-normalized logit head without activation;
@@ -33,7 +35,14 @@ from hypelcnn_tpu_torch.models.base import (
     reconstruction_loss,
     softmax_cross_entropy,
 )
-from hypelcnn_tpu_torch.models.layers import SlimConv, SlimDense, multi_scale_level
+from hypelcnn_tpu_torch.models.layers import (
+    Dropout,
+    FusedMultiScaleLevel,
+    SlimConv,
+    SlimDense,
+    level_kernel_sizes,
+    multi_scale_level,
+)
 from hypelcnn_tpu_torch.ops.nn import leaky_relu, scale_in_to_out
 
 DEFAULT_PARAMS: Dict[str, Any] = {
@@ -56,33 +65,12 @@ DEFAULT_PARAMS: Dict[str, Any] = {
 }
 
 
-class Dropout(nn.Module):
-    """Dropout as flax computes it (``where(keep, x / keep_prob, 0)``), with its
-    mask drawn from an explicit generator, never from torch's global state.
-    In training with a rate above 0, a missing generator is an error."""
-
-    def __init__(self, rate: float):
-        super().__init__()
-        self.rate = rate
-
-    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator]) -> torch.Tensor:
-        if not self.training or self.rate == 0.0:
-            return x
-        if generator is None:
-            raise ValueError("train-mode dropout needs a generator")
-        keep_prob = 1.0 - self.rate
-        keep = torch.rand(x.shape, generator=generator, device=x.device, dtype=x.dtype) < keep_prob
-        return torch.where(keep, x / keep_prob, torch.zeros_like(x))
-
-
 class HYPELCNNModule(nn.Module):
     def __init__(self, class_count: int, params_dict: Dict[str, Any], data_shape: Sequence[int]):
         super().__init__()
         p = params_dict
         if p.get("compute_dtype", "float32") != "float32":
             raise NotImplementedError("the port computes HYPELCNN in float32 only")
-        if p.get("fuse_level_convs", False):
-            raise NotImplementedError("fuse_level_convs is not ported yet (ROADMAP.md A9)")
         patch, patch_w, in_channels = data_shape
         if patch != patch_w:
             raise ValueError(f"HYPELCNN takes square patches, got {list(data_shape)}")
@@ -91,11 +79,11 @@ class HYPELCNNModule(nn.Module):
 
         def conv(cin: int, features: int, kernel: int) -> SlimConv:
             return SlimConv(cin, features, kernel, activation=act, use_batch_norm=True,
-                            bn_momentum=p["bn_decay"])
+                            bn_momentum=p["bn_decay"], kernel_init="he_truncated")
 
         def dense(cin: int, features: int, activation=act) -> SlimDense:
             return SlimDense(cin, features, activation=activation, use_batch_norm=True,
-                             bn_momentum=p["bn_decay"])
+                             bn_momentum=p["bn_decay"], kernel_init="he_truncated")
 
         count = p["spectral_hierarchy_level"]
         filters = p["filter_count"]
@@ -112,7 +100,7 @@ class HYPELCNNModule(nn.Module):
             width = feat
 
         level_filters = width // 2
-        kernel_sizes = range(1, patch + 1, 2)  # the odd sizes up to the patch
+        kernel_sizes = level_kernel_sizes(patch)
         self.levels = []
         for index in range(p["spatial_hierarchy_level"]):
             feat = level_filters // (2 ** index)
@@ -121,8 +109,14 @@ class HYPELCNNModule(nn.Module):
                     f"filter_count={filters} too small for "
                     f"spatial_hierarchy_level={p['spatial_hierarchy_level']} "
                     f"(level {index} would have 0 filters)")
-            branches = [self._add(f"connector_{index}_conv{k}x{k}", conv(width, feat, k))
-                        for k in kernel_sizes]
+            if p.get("fuse_level_convs", False):
+                # one zero-padded k_max convolution computes the whole level
+                branches = [self._add(f"connector_{index}_fused", FusedMultiScaleLevel(
+                    width, feat, patch, activation=act, use_batch_norm=True,
+                    bn_momentum=p["bn_decay"], kernel_init="he_truncated"))]
+            else:
+                branches = [self._add(f"connector_{index}_conv{k}x{k}", conv(width, feat, k))
+                            for k in kernel_sizes]
             width = feat * len(kernel_sizes)
             self.levels.append((branches, self._add(f"connector_conv_{index}",
                                                     conv(width, width, 1))))

@@ -32,3 +32,29 @@ def scale_in_to_out(input_data: torch.Tensor, output_data: torch.Tensor, dim: in
     positions = torch.arange(out_ch, dtype=torch.float64, device=input_data.device)
     idx = torch.round(positions * (in_ch / out_ch)).clamp_(max=in_ch - 1).to(torch.int64)
     return torch.index_select(input_data, dim, idx)
+
+
+def local_response_normalization(x: torch.Tensor, depth_radius: int = 5, bias: float = 1.0,
+                                 alpha: float = 1.0, beta: float = 0.5,
+                                 dim: int = 1) -> torch.Tensor:
+    """LRN over channel dim ``dim`` with TF's semantics
+    (``hypelcnn_tpu/ops/nn.py:local_response_normalization``):
+    ``x / (bias + alpha * sum(x**2 over the 2r+1 channels around c)) ** beta``.
+
+    The window sum is a plain sum, clipped at the edges, taken as a difference
+    of cumulative sums as the JAX package takes it.
+    ``torch.nn.functional.local_response_norm`` divides ``alpha`` by the
+    window size and pads differently, so it computes another function.
+    """
+    sq = torch.square(x).movedim(dim, -1)
+    cs = torch.cumsum(torch.nn.functional.pad(sq, (depth_radius + 1, depth_radius)), dim=-1)
+    win = 2 * depth_radius + 1
+    window_sums = (cs[..., win:] - cs[..., :-win]).movedim(-1, dim)
+    return x / torch.pow(bias + alpha * window_sums, beta)
+
+
+def squash(s: torch.Tensor, dim: int = -1, eps: float = 1e-9) -> torch.Tensor:
+    """Capsule squash (``hypelcnn_tpu/ops/nn.py:squash``), with the JAX
+    package's MEAN of squares, not the sum, as its norm term."""
+    norm_sq = torch.mean(torch.square(s), dim=dim, keepdim=True)
+    return norm_sq * s / ((1.0 + norm_sq) * torch.sqrt(norm_sq + eps))

@@ -11,7 +11,7 @@ import torch
 
 from hypelcnn_tpu_torch.compat.flax_to_torch import load_flax_variables, variables_to_state_dict
 from hypelcnn_tpu_torch.models.hypelcnn import HYPELCNNModel
-from torch_parity import init_jax_hypelcnn
+from torch_parity import init_jax
 
 CLASSES = 5
 PARAMS = {"filter_count": 32}
@@ -20,7 +20,7 @@ DATA_SHAPE = (3, 3, 13)
 
 @pytest.fixture(scope="module")
 def flax_variables():
-    _, flax_params, batch_stats = init_jax_hypelcnn(CLASSES, PARAMS, DATA_SHAPE)
+    _, flax_params, batch_stats = init_jax("HYPELCNNModel", CLASSES, PARAMS, DATA_SHAPE)
     return flax_params, batch_stats
 
 
@@ -85,3 +85,23 @@ def test_wrong_shape_raises(flax_variables):
     flax_params["conv_enc_0"]["Conv_0"]["kernel"] = np.zeros((1, 1, 12, 8), np.float32)
     with pytest.raises(RuntimeError, match="size mismatch"):
         load_flax_variables(_port_module(), flax_params, batch_stats)
+
+
+def test_new_leaves_map_and_unknown_ones_still_raise():
+    """CAP's top-level capsule weight and bias are copied as they are; a
+    fused level's kernels go HWIO -> OIHW and its biases as they are; a
+    top-level leaf or a fused leaf of any other name raises."""
+    w = np.arange(2 * 3 * 4, dtype=np.float32).reshape(2, 3, 4)
+    kernel = np.arange(3 * 3 * 2 * 5, dtype=np.float32).reshape(3, 3, 2, 5)
+    state = variables_to_state_dict({
+        "digitcaps_w": w, "digitcaps_b": np.ones((2, 4), np.float32),
+        "level1_fused": {"conv3x3_kernel": kernel, "conv3x3_bias": np.ones(5, np.float32)}})
+    np.testing.assert_array_equal(state["digitcaps_w"].numpy(), w)
+    assert state["digitcaps_b"].shape == (2, 4)
+    np.testing.assert_array_equal(state["level1_fused.conv3x3_kernel"].numpy(),
+                                  kernel.transpose(3, 2, 0, 1))
+    assert state["level1_fused.conv3x3_bias"].shape == (5,)
+    for params in ({"digitcaps_x": w}, {"level1_fused": {"conv3x3_scale": kernel}},
+                   {"level1": {"conv3x3_kernel": kernel}}):
+        with pytest.raises(KeyError, match="no mapping"):
+            variables_to_state_dict(params)

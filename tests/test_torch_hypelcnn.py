@@ -15,7 +15,7 @@ from hypelcnn_tpu.ops.nn import leaky_relu as jax_leaky_relu
 from hypelcnn_tpu.ops.nn import scale_in_to_out as jax_scale_in_to_out
 from hypelcnn_tpu_torch.models.hypelcnn import HYPELCNNModel
 from hypelcnn_tpu_torch.ops.nn import leaky_relu, scale_in_to_out
-from torch_parity import init_jax_hypelcnn, jax_eval_logits, torch_module_from
+from torch_parity import init_jax, jax_eval_logits, torch_module
 
 CLASSES = 5
 CHANNELS = 13  # 12 bands plus LiDAR
@@ -30,11 +30,11 @@ CHANNELS = 13  # 12 bands plus LiDAR
 def test_eval_logits_match_jax(patch, filter_count, use_residual):
     params = {"filter_count": filter_count, "use_residual": use_residual}
     data_shape = (patch, patch, CHANNELS)
-    jax_module, flax_params, batch_stats = init_jax_hypelcnn(CLASSES, params, data_shape)
+    jax_module, flax_params, batch_stats = init_jax("HYPELCNNModel", CLASSES, params, data_shape)
     x = np.random.default_rng(1).uniform(0, 1, (17, *data_shape)).astype(np.float32)
 
     expected = jax_eval_logits(jax_module, flax_params, batch_stats, x)
-    module = torch_module_from(flax_params, batch_stats, CLASSES, params, data_shape)
+    module = torch_module("HYPELCNNModel", flax_params, batch_stats, CLASSES, params, data_shape)
     with torch.no_grad():
         got = module(torch.from_numpy(x)).y_conv.numpy()
 
@@ -56,12 +56,13 @@ def test_train_mode_forward_matches_jax():
     update and the reconstruction heads agree with the JAX module."""
     params = {"filter_count": 32, "drop_out_ratio": 0.0}
     data_shape = (3, 3, CHANNELS)
-    jax_module, flax_params, batch_stats = init_jax_hypelcnn(CLASSES, params, data_shape)
+    jax_module, flax_params, batch_stats = init_jax("HYPELCNNModel", CLASSES, params, data_shape)
     x = np.random.default_rng(2).uniform(0, 1, (16, *data_shape)).astype(np.float32)
     out, updated = jax_module.apply({"params": flax_params, "batch_stats": batch_stats},
                                     jnp.asarray(x), train=True, mutable=["batch_stats"])
 
-    module = torch_module_from(flax_params, batch_stats, CLASSES, params, data_shape).train()
+    module = torch_module("HYPELCNNModel", flax_params, batch_stats, CLASSES, params,
+                          data_shape).train()
     with torch.no_grad():
         got = module(torch.from_numpy(x))
 

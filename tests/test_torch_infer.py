@@ -24,7 +24,7 @@ from hypelcnn_tpu_torch.infer.scene_inference import (
 )
 from hypelcnn_tpu_torch.train.checkpoint import restore_checkpoint, save_checkpoint
 from hypelcnn_tpu_torch.utils.tiff_io import imwrite, read_tags
-from torch_parity import init_jax_hypelcnn, torch_module_from
+from torch_parity import init_jax, torch_module
 
 SPEC = "synthetic://?h=48&w=64&bands=12&classes=5&seed=3"
 CLASSES = 5
@@ -35,8 +35,9 @@ DATA_SHAPE = (3, 3, 13)
 
 @pytest.fixture(scope="module")
 def setup():
-    jax_module, flax_params, batch_stats = init_jax_hypelcnn(CLASSES, PARAMS, DATA_SHAPE, seed=4)
-    module = torch_module_from(flax_params, batch_stats, CLASSES, PARAMS, DATA_SHAPE)
+    jax_module, flax_params, batch_stats = init_jax("HYPELCNNModel", CLASSES, PARAMS, DATA_SHAPE,
+                                                    seed=4)
+    module = torch_module("HYPELCNNModel", flax_params, batch_stats, CLASSES, PARAMS, DATA_SHAPE)
     variables = {"params": flax_params, "batch_stats": batch_stats}
     jax_scene = JaxSyntheticDataLoader(SPEC).load_data(NEIGHBORHOOD, True)
     scene = SyntheticDataLoader(SPEC).load_data(NEIGHBORHOOD, True)

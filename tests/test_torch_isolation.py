@@ -1,5 +1,5 @@
-"""The PyTorch port stands alone: nothing in it, nor in ``chip_smoke.py``,
-imports jax, flax, optax, orbax, scikit-learn or the JAX package, and its
+"""The PyTorch port stands alone: nothing in it, nor in ``chip_smoke.py`` or
+the port's scripts (``scripts/torch_*.py``), imports jax, flax, optax, orbax, scikit-learn or the JAX package, and its
 CLIs run on CUDA unless asked for the CPU."""
 
 import ast
@@ -16,7 +16,8 @@ FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "sklearn", "hypelcnn_tpu
 
 
 def _port_files():
-    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    return (sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+            + sorted((ROOT / "scripts").glob("torch_*.py")))
 
 
 def _imported_roots(path):

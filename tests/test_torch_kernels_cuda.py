@@ -12,7 +12,7 @@ import pytest
 import torch
 
 from hypelcnn_tpu_torch.core.platform import resolve_device
-from hypelcnn_tpu_torch.core.registry import get_importer_from_name
+from hypelcnn_tpu_torch.core.registry import get_importer_from_name, get_model_from_name
 from hypelcnn_tpu_torch.data.loaders.synthetic import SyntheticDataLoader
 from hypelcnn_tpu_torch.infer.scene_inference import predict_full_scene
 from hypelcnn_tpu_torch.kernels import build
@@ -63,6 +63,57 @@ def test_window_gather_matches_plain_at_training_shapes(cuda, batch):
     torch.cuda.synchronize()
     assert got.shape == (batch, 3, 3, 145)
     assert torch.equal(got, gather_patches_torch(scene, coords, 3))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch, k", [(30480, 5), (10, 5), (48, 5), (16, 3), (1, 3)])
+def test_window_gather_matches_plain_at_family_shapes(cuda, batch, k):
+    """The shapes the other families add: the k = 5 sweep band (CONCNN,
+    DUALCNN), CONCNN's step of 10 and DUALCNN's of 48 at k = 5, CAP's step
+    of 16 at k = 3, and a single window."""
+    rng = np.random.default_rng(batch * k)
+    pad = k // 2
+    scene = torch.from_numpy(rng.normal(size=(349 + 2 * pad, 1905 + 2 * pad, 145))
+                             .astype(np.float32)).to(cuda)
+    coords = torch.from_numpy(np.stack([rng.integers(0, 1905, batch), rng.integers(0, 349, batch)],
+                                       axis=1).astype(np.int32)).to(cuda)
+    got = window_gather_cuda(scene, coords, k)
+    torch.cuda.synchronize()
+    assert got.shape == (batch, k, k, 145)
+    assert torch.equal(got, gather_patches_torch(scene, coords, k))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model_name, params, neighborhood", [
+    ("CONCNNModel", {"filter_count": 16}, 2),
+    ("DUALCNNModel", {"filter_count": 32}, 2),
+    ("CAPModel", {"feature_count": 16, "primary_capsule_count": 4}, 1),
+])
+def test_family_training_and_sweep_go_through_the_kernel(cuda, model_name, params, neighborhood):
+    """Every family: one launch per training step and eval batch, one per
+    sweep band, and the plain gather's class map."""
+    np.random.seed(0)
+    data = get_importer_from_name("GeneratorImporter").read_data_set(
+        "SyntheticDataLoader", "synthetic://?h=48&w=64&bands=12&classes=5&seed=3",
+        train_ratio=0.5, test_ratio=0.1, neighborhood=neighborhood)
+    model = get_model_from_name(model_name)
+    trainer = ClassificationTrainer(
+        model=model, class_count=data.class_count,
+        algorithm_params={**model.default_params(), **params}, scene=data.scene,
+        sample_set=data.sample_set, sources=data.sources, data_shape=data.data_shape,
+        device=cuda, test_cadence=4)
+    reset_launches()
+    result = trainer.fit(6, 16, log_every=3)
+    assert window_gather_cuda.launches_by_batch[16] == 6
+    assert window_gather_cuda.launches == 6 + 1 + 1 + -(-data.sample_set.validation_targets.shape[0]
+                                                         // 8192)
+    assert np.isfinite(result.loss)
+    module = result.final_state.module
+    reset_launches()
+    got = predict_full_scene(module, data.scene, batch_rows=16, device=cuda)
+    assert window_gather_cuda.launches == 3
+    np.testing.assert_array_equal(got, predict_full_scene(module, data.scene, batch_rows=16,
+                                                          device=cuda, gather=gather_patches_torch))
 
 
 @pytest.mark.cuda

@@ -40,7 +40,7 @@ from hypelcnn_tpu_torch.infer.scene_inference import predict_full_scene
 from hypelcnn_tpu_torch.models.hypelcnn import HYPELCNNModel
 from hypelcnn_tpu_torch.train.checkpoint import checkpoint_steps, save_checkpoint
 from hypelcnn_tpu_torch.train.trainer import ClassificationTrainer
-from torch_parity import init_jax_hypelcnn, torch_module_from
+from torch_parity import init_jax, torch_module
 
 SPEC = "synthetic://?h=48&w=64&bands=12&classes=5&seed=3"
 CLASSES = 5
@@ -222,14 +222,15 @@ def test_train_cli_then_infer_cli(tmp_path):
 
 def test_infer_cli_sample_and_gt_match_jax(tmp_path):
     params = _params_file(tmp_path)
-    jax_module, flax_params, batch_stats = init_jax_hypelcnn(CLASSES, {"filter_count": 32},
-                                                             (3, 3, 13), seed=4)
+    jax_module, flax_params, batch_stats = init_jax("HYPELCNNModel", CLASSES,
+                                                    {"filter_count": 32}, (3, 3, 13), seed=4)
     tx, _ = jax_build_optimizer({**JaxHYPELCNNModel().default_params(), "filter_count": 32})
     to_jax = jax.tree_util.tree_map
     state = JaxTrainState.create(to_jax(jax.numpy.asarray, flax_params),
                                  to_jax(jax.numpy.asarray, batch_stats), tx)
     jax_save_checkpoint(str(tmp_path / "jax_log"), state.replace(step=jax.numpy.asarray(1)))
-    module = torch_module_from(flax_params, batch_stats, CLASSES, {"filter_count": 32}, (3, 3, 13))
+    module = torch_module("HYPELCNNModel", flax_params, batch_stats, CLASSES,
+                          {"filter_count": 32}, (3, 3, 13))
     save_checkpoint(str(tmp_path / "log"), 1, module.state_dict())
 
     common = ["--loader_name=SyntheticDataLoader", f"--path={SPEC}", "--neighborhood=1",

@@ -1,10 +1,11 @@
 """Shared set-up of the PyTorch-port parity tests (``test_torch_*.py``).
 
-One flax HYPELCNN is initialized in the JAX package with ``train=True`` (so
-the ``image_gen`` heads exist, as in a trained checkpoint); its batch-norm
+A flax module of any family is initialized in the JAX package with
+``train=True`` and labels (so the train-only heads exist, HYPELCNN's
+``image_gen`` and CAP's decoder, as in a trained checkpoint); its batch-norm
 statistics and biases are then drawn from a numpy generator, so that
 evaluation exercises the batch norm. Both frameworks get the same numpy
-arrays.
+arrays, and the port's module loads them through the weight bridge.
 """
 
 from __future__ import annotations
@@ -13,23 +14,24 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from hypelcnn_tpu.models.hypelcnn import HYPELCNNModel as JaxHYPELCNNModel
+from hypelcnn_tpu.core.registry import get_model_from_name as jax_get_model
 from hypelcnn_tpu_torch.compat.flax_to_torch import load_flax_variables
-from hypelcnn_tpu_torch.models.hypelcnn import HYPELCNNModel
+from hypelcnn_tpu_torch.core.registry import get_model_from_name
 
 
-def _numpy_tree(tree):
+def numpy_tree(tree):
     return jax.tree_util.tree_map(np.asarray, jax.device_get(tree))
 
 
-def init_jax_hypelcnn(class_count: int, params: dict, data_shape, seed: int = 0):
+def init_jax(model_name: str, class_count: int, params: dict, data_shape, seed: int = 0):
     """``(flax module, params, batch_stats)`` with numpy leaves and random BN state."""
-    module = JaxHYPELCNNModel().create_module(class_count, params)
+    module = jax_get_model(model_name).create_module(class_count, params)
     dummy = jnp.zeros((2, *data_shape), dtype=jnp.float32)
-    variables = jax.jit(lambda rngs: module.init(rngs, dummy, train=True))(
+    labels = jnp.eye(class_count, dtype=jnp.float32)[jnp.arange(2) % class_count]
+    variables = jax.jit(lambda rngs: module.init(rngs, dummy, labels=labels, train=True))(
         {"params": jax.random.PRNGKey(seed), "dropout": jax.random.PRNGKey(seed + 1)})
-    flax_params = _numpy_tree(variables["params"])
-    batch_stats = _numpy_tree(variables["batch_stats"])
+    flax_params = numpy_tree(variables["params"])
+    batch_stats = numpy_tree(variables.get("batch_stats", {}))
     rng = np.random.default_rng(seed)
 
     def randomize(path, leaf):
@@ -53,8 +55,11 @@ def jax_eval_logits(module, flax_params, batch_stats, x: np.ndarray) -> np.ndarr
     return np.asarray(out.y_conv)
 
 
-def torch_module_from(flax_params, batch_stats, class_count: int, params: dict, data_shape):
-    """The port's HYPELCNN in eval mode, loaded strictly from the flax variables."""
-    module = HYPELCNNModel().create_module(class_count, params, data_shape)
+def torch_module(model_name: str, flax_params, batch_stats, class_count: int, params: dict,
+                 data_shape):
+    """The port's module of ``model_name`` in eval mode, loaded strictly
+    from the flax variables."""
+    model = get_model_from_name(model_name)
+    module = model.create_module(class_count, {**model.default_params(), **params}, data_shape)
     load_flax_variables(module, flax_params, batch_stats)
     return module.eval()
