@@ -9,7 +9,7 @@ without them. Phases, one JSON line each:
 1. ``device``: the card's name and power limit.
 2. ``build``: every kernel source built with ``nvcc`` (in parallel).
 3. ``kernel_vs_plain``: the CUDA window gather held bit for bit against its
-   plain PyTorch version, k in {1, 3, 5, 7, 9}, C in {12, 145},
+   plain PyTorch version, k in {1, 3, 5, 7, 9}, C in {12, 65, 145, 360},
    B in {1, 129, 30480}, with out-of-range and negative coordinates.
 4. ``infer_all``: ``infer_for_classification --domain=all --device=cuda`` at
    the full width of ``configs/modelconfigs/alg_param_hypelcnn.json`` over a
@@ -60,11 +60,41 @@ published JSON, on the same scene (``family_concnn``: k = 5, batch 10;
   bound, the larger of its float32 FLOP and the bytes it must move (for CAP
   also the traffic of this implementation's prediction vectors).
 
+Then the four loader phases. Each writes a dataset directory in its
+loader's own file layout with ``hypelcnn_tpu_torch.data.layouts`` (the
+synthetic generator's content in the real files' dtypes), reads it back
+through the loader, checks that the padded, normalized host arrays equal bit
+for bit the scene built from the arrays written, runs the train CLI with
+HYPELCNN at full width, batch 48, and checks a finite loss that falls below
+the first step's, an accuracy gate and, for a plain ``Scene``, the CUDA
+gather's launches (one a step, one an eval batch). Each prints its write,
+read and upload times and bytes, the scene's device bytes, CLI and step
+times and peak memory:
+
+- ``loader_grss2013``: GRSS2013 at 349 x 1905 (144-page uint16 CASI, float32
+  LiDAR, TR/VA, shadow map), 200 steps, test OA above 0.5; then the infer
+  CLI's ``all`` map equals the sweep of the same weights over the ``Scene``
+  built in memory;
+- ``loader_grss2018``: DFC2018's layout (CASI 1202 x 4172 x 50, LiDAR
+  2404 x 8344 with values above 300, GT 1202 x 4768 with 10% labelled), k = 3,
+  200 steps; ``gather_patches_dual`` on the card equals
+  ``DualResScene.get_data_point`` for 4,096 targets; no CUDA-gather launch
+  (a dual scene is not a plain one); test OA above 0.5; ``--domain gt``
+  rasterizes the GT written;
+- ``loader_gulfport``: MUUFL Gulfport at 325 x 220 x 64 through
+  ``GULFPORTALTDataLoader`` (ORIGINAL; the gather at C = 65), 200 steps,
+  validation OA above 0.5 (the test split is empty); then a trainer on the
+  MIXED ``MultiScene`` for 50 steps: 2 scenes on the device, not 4, and of
+  10,240 member draws 0.70 to 0.80 shadowed, each window its member's;
+- ``loader_avon``: AVON's layout at 500 x 300 x 360 (stored 360 x 300 x 610,
+  four 1-bit BMP masks), 100 steps, no LiDAR (C = 360), test OA above 0.75.
+
 Then ``fused_levels``: fused and unfused multi-scale levels give the same
 logits on 256 windows at full width, HYPELCNN and DUALCNN, and DUALCNN's
 sweep and step are timed both ways; and the ``kernels`` line gains the k = 5
-band, each family's training step and a single window (the launch floor,
-with the main path's launches at B = 1, which must be none). A last line
+band, each family's training step, the GULFPORT and AVON training steps
+(C = 65 and 360) and a single window (the launch floor, with the main path's
+launches at B = 1, which must be none). A last line
 before the result gives each phase's seconds.
 
 The last line is ``{"ok": true, "device": {...}}``. Any failure raises.
@@ -93,8 +123,16 @@ from hypelcnn_tpu_torch.core.config import load_algorithm_params
 from hypelcnn_tpu_torch.core.platform import resolve_device
 from hypelcnn_tpu_torch.core.registry import get_importer_from_name, get_model_from_name
 from hypelcnn_tpu_torch.core.rng import set_run_seed
+from hypelcnn_tpu_torch.data import layouts
 from hypelcnn_tpu_torch.data.augmentation import AugmentationInfo
+from hypelcnn_tpu_torch.data.importers import ScenePatchSource
+from hypelcnn_tpu_torch.data.loaders import avon
+from hypelcnn_tpu_torch.data.loaders.base import LoadingMode
+from hypelcnn_tpu_torch.data.loaders.grss2013 import GRSS2013DataLoader
+from hypelcnn_tpu_torch.data.loaders.grss2018 import GRSS2018DataLoader
+from hypelcnn_tpu_torch.data.loaders.gulfport_alt import GULFPORTALTDataLoader
 from hypelcnn_tpu_torch.data.loaders.synthetic import SyntheticDataLoader
+from hypelcnn_tpu_torch.data.scene import DualResScene, Scene
 from hypelcnn_tpu_torch.infer.scene_inference import (
     create_target_image_via_samples,
     predict_full_scene,
@@ -103,10 +141,10 @@ from hypelcnn_tpu_torch.kernels import build
 from hypelcnn_tpu_torch.kernels.window_gather import reset_launches, window_gather_cuda
 from hypelcnn_tpu_torch.models.hypelcnn import HYPELCNNModel
 from hypelcnn_tpu_torch.models.layers import SlimBatchNorm, fuse_variables, init_parameters
-from hypelcnn_tpu_torch.ops.window_gather import gather_patches_torch
+from hypelcnn_tpu_torch.ops.window_gather import gather_patches_dual, gather_patches_torch
 from hypelcnn_tpu_torch.train.checkpoint import checkpoint_steps, save_checkpoint
 from hypelcnn_tpu_torch.train.trainer import ClassificationTrainer
-from hypelcnn_tpu_torch.utils.tiff_io import read_tags
+from hypelcnn_tpu_torch.utils.tiff_io import imread, read_tags
 
 ROOT = Path(__file__).resolve().parent
 SOURCES = ["window_gather"]
@@ -147,6 +185,13 @@ FAMILIES = [
     Family("family_cap", "CAPModel", CONFIGS / "alg_param_capn.json", 1, 16, 300, {}),
 ]
 FAMILY_OA = 0.2  # chance is 1/15
+# the loader phases: the train CLI at HYPELCNN's full width on each layout
+LOADER_BATCH, LOADER_STEPS, AVON_STEPS, MIXED_STEPS = 48, 200, 100, 50
+LOADER_TRAIN_RATIO, LOADER_TEST_RATIO = 0.1, 0.05
+MEMBER_DRAWS, DUAL_CHECKS = 10240, 4096
+AVON_SIZE = {"height": 500, "width": 300}  # AVON's size is not published; this is ours
+LOADER_OA = {"GRSS2013DataLoader": 0.5, "GRSS2018DataLoader": 0.5,
+             "GULFPORTALTDataLoader": 0.5, "AVONDataLoader": 0.75}  # chance 1/15, 1/20, 1/11, 1/2
 FUSED_PAIRS = 10  # DUALCNN step pairs, unfused against fused
 # the gather's launches by batch size in each main-path run (CLI runs), in order
 MAIN_PATH_RUNS: list = []
@@ -200,7 +245,7 @@ def phase_build() -> None:
 def phase_kernel_vs_plain(device) -> None:
     gen = torch.Generator(device=device).manual_seed(SEED)
     cases = 0
-    for channels in (12, 145):
+    for channels in (12, 65, 145, 360):
         hp, wp = 40, 300
         scene = torch.randn((hp, wp, channels), generator=gen, device=device)
         for k in (1, 3, 5, 7, 9):
@@ -262,13 +307,6 @@ def _timed_sweeps(fn, runs: int = 3) -> list:
     return times
 
 
-def _read_tiff_strip(path: Path, shape) -> np.ndarray:
-    tags = read_tags(str(path))
-    with open(path, "rb") as fid:
-        fid.seek(tags[273])
-        return np.frombuffer(fid.read(tags[279]), dtype=np.uint8).reshape(shape)
-
-
 def phase_infer_all(device, work: Path):
     params = load_algorithm_params(HYPELCNNModel().default_params(), str(PARAMS_PATH))
     scene = SyntheticDataLoader(SPEC).load_data(NEIGHBORHOOD, True)
@@ -300,7 +338,7 @@ def phase_infer_all(device, work: Path):
     check(raw.is_file() and colorized.is_file(), "the CLI did not write both TIFFs")
     check(read_tags(str(raw))[279] == HEIGHT * WIDTH, "result_raw.tif strip size")
     check(read_tags(str(colorized))[279] == HEIGHT * WIDTH * 3, "result_colorized.tif strip size")
-    cli_map = _read_tiff_strip(raw, (HEIGHT, WIDTH))
+    cli_map = imread(str(raw))
 
     module = module.to(device)
     kernel_map = predict_full_scene(module, scene, device=device)
@@ -377,6 +415,21 @@ def _expected_launches(start: int, stop: int, n_test: int, n_validation: int) ->
     return {"steps": stop - start, "eval_batches": evals, "total": stop - start + evals}
 
 
+def _check_launches(what: str, by_batch: dict, launches: int, counts: dict, steps: int,
+                    batch: int) -> dict:
+    """A train CLI run over a plain ``Scene`` launched the CUDA gather once a
+    step (at the step's batch) and once an eval batch (at every other size),
+    exactly."""
+    expected = _expected_launches(0, steps, counts["test"], counts["validation"])
+    eval_sizes = {min(EVAL_BATCH, counts["test"]), min(EVAL_BATCH, counts["validation"])}
+    check(batch not in eval_sizes, f"{what}: an eval batch has the step's size: {eval_sizes}")
+    measured = {"steps": by_batch.get(batch, 0), "eval_batches": launches - by_batch.get(batch, 0),
+                "total": launches}
+    check(measured == expected, f"{what}: window_gather launches over training {measured} "
+                                f"(by batch {by_batch}), expected {expected}")
+    return {"gather_launches": measured, "expected_launches": expected}
+
+
 def _logged_losses(log_dir: Path) -> list:
     with open(log_dir / "summaries.jsonl", encoding="utf-8") as fid:
         records = [json.loads(line) for line in fid]
@@ -411,7 +464,6 @@ def phase_train(device, work: Path, data, macs: int) -> dict:
     params = {**load_algorithm_params(HYPELCNNModel().default_params(), str(PARAMS_PATH)),
               "batch_size": TRAIN_BATCH}
     counts = {split: data.targets(split).shape[0] for split in ("training", "test", "validation")}
-    expected = _expected_launches(0, TRAIN_STEPS, counts["test"], counts["validation"])
     log_root = work / "train_log"
 
     torch.cuda.reset_peak_memory_stats()
@@ -424,14 +476,7 @@ def phase_train(device, work: Path, data, macs: int) -> dict:
     cli_peak_bytes = torch.cuda.max_memory_allocated()
     (log_dir,) = [p for p in log_root.iterdir() if p.is_dir()]
     losses = _logged_losses(log_dir)
-    # the steps launch at the training batch, the eval drains at every other size
-    eval_sizes = {min(EVAL_BATCH, counts["test"]), min(EVAL_BATCH, counts["validation"])}
-    check(TRAIN_BATCH not in eval_sizes, f"an eval batch has the step's size: {eval_sizes}")
-    measured = {"steps": by_batch.get(TRAIN_BATCH, 0),
-                "eval_batches": launches - by_batch.get(TRAIN_BATCH, 0), "total": launches}
-    check(measured == expected,
-          f"window_gather launches over training {measured} (by batch {by_batch}), "
-          f"expected {expected}")
+    gather = _check_launches("train", by_batch, launches, counts, TRAIN_STEPS, TRAIN_BATCH)
     check(len(losses) > 1 and all(math.isfinite(v) for _, v in losses),
           f"non-finite or missing logged losses: {losses}")
     check(losses[-1][1] < losses[0][1], f"the logged loss did not fall: {losses}")
@@ -449,8 +494,7 @@ def phase_train(device, work: Path, data, macs: int) -> dict:
     runs = [_timed_steps(trainer, state, tables, 20 + 100 * i, 100) / 100 for i in range(3)]
     step_seconds = statistics.median(runs)
     step_flop = 3 * 2 * macs * TRAIN_BATCH  # forward + backward ~ 3 forwards
-    emit({"phase": "train", "steps": TRAIN_STEPS, "batch": TRAIN_BATCH,
-          "targets": counts, "gather_launches": measured, "expected_launches": expected,
+    emit({"phase": "train", "steps": TRAIN_STEPS, "batch": TRAIN_BATCH, "targets": counts, **gather,
           "gather_launches_by_batch": {str(b): n for b, n in sorted(by_batch.items())},
           "logged_losses": losses, "test_oa": result.test_accuracy,
           "checkpoints": saved, "cli_seconds": cli_seconds,
@@ -459,7 +503,7 @@ def phase_train(device, work: Path, data, macs: int) -> dict:
           "cli_peak_device_bytes": cli_peak_bytes,
           "steady_peak_device_bytes": torch.cuda.max_memory_allocated(),
           "flop_per_step": step_flop, "step_bound_seconds": step_flop / FP32_FLOP_PER_S})
-    return {"log_root": log_root, "log_dir": log_dir, "launches": measured,
+    return {"log_root": log_root, "log_dir": log_dir, "launches": gather["gather_launches"],
             "trainer": trainer, "state": state, "tables": tables, "next_step": 320,
             "params": params}
 
@@ -526,7 +570,7 @@ def phase_infer_trained(device, work: Path, train) -> None:
         raw, colorized = out_dir / "result_raw.tif", out_dir / "result_colorized.tif"
         check(raw.is_file() and colorized.is_file(), f"--domain={domain} did not write both TIFFs")
         check(read_tags(str(colorized))[279] == HEIGHT * WIDTH * 3, "colorized strip size")
-        maps[domain] = _read_tiff_strip(raw, (HEIGHT, WIDTH))
+        maps[domain] = imread(str(raw))
     n_bands = (HEIGHT + BATCH_ROWS - 1) // BATCH_ROWS
     check(launches == {"all": n_bands, "sample": math.ceil(HEIGHT * WIDTH / SAMPLE_BATCH)},
           f"window_gather launches in the infer CLI: {launches}")
@@ -596,9 +640,6 @@ def phase_family(device, work: Path, family: Family) -> dict:
     data = _training_data(family.neighborhood)
     scene, k = data.scene, 2 * family.neighborhood + 1
     counts = {split: data.targets(split).shape[0] for split in ("training", "test", "validation")}
-    expected = _expected_launches(0, family.steps, counts["test"], counts["validation"])
-    eval_sizes = {min(EVAL_BATCH, counts["test"]), min(EVAL_BATCH, counts["validation"])}
-    check(family.batch not in eval_sizes, f"an eval batch has the step's size: {eval_sizes}")
     log_root = work / f"{family.phase}_log"
 
     # train CLI
@@ -612,11 +653,7 @@ def phase_family(device, work: Path, family: Family) -> dict:
     cli_peak_bytes = torch.cuda.max_memory_allocated()
     (log_dir,) = [p for p in log_root.iterdir() if p.is_dir()]
     losses = _logged_losses(log_dir)
-    measured = {"steps": by_batch.get(family.batch, 0),
-                "eval_batches": launches - by_batch.get(family.batch, 0), "total": launches}
-    check(measured == expected,
-          f"{family.model}: window_gather launches over training {measured} "
-          f"(by batch {by_batch}), expected {expected}")
+    gather = _check_launches(family.model, by_batch, launches, counts, family.steps, family.batch)
     check(len(losses) > 1 and all(math.isfinite(v) for _, v in losses),
           f"{family.model}: non-finite or missing logged losses: {losses}")
     check(losses[-1][1] < losses[0][1], f"{family.model}: the logged loss did not fall: {losses}")
@@ -646,7 +683,7 @@ def phase_family(device, work: Path, family: Family) -> dict:
         raw = out_dir / "result_raw.tif"
         check(raw.is_file() and (out_dir / "result_colorized.tif").is_file(),
               f"{family.model}: --domain={domain} did not write both TIFFs")
-        maps[domain] = _read_tiff_strip(raw, (HEIGHT, WIDTH))
+        maps[domain] = imread(str(raw))
     n_bands = (HEIGHT + BATCH_ROWS - 1) // BATCH_ROWS
     check(infer_launches == {"all": n_bands, "sample": math.ceil(HEIGHT * WIDTH / SAMPLE_BATCH)},
           f"{family.model}: window_gather launches in the infer CLI: {infer_launches}")
@@ -689,8 +726,7 @@ def phase_family(device, work: Path, family: Family) -> dict:
     flop_bound = 2 * macs * windows / FP32_FLOP_PER_S
     record = {"phase": family.phase, "model": family.model,
               "config": str(family.params_path.relative_to(ROOT)), "patch": k,
-              "batch": family.batch, "steps": family.steps, "targets": counts,
-              "gather_launches": measured, "expected_launches": expected,
+              "batch": family.batch, "steps": family.steps, "targets": counts, **gather,
               "gather_launches_by_batch": {str(b): n for b, n in sorted(by_batch.items())},
               "logged_losses": losses, "test_oa": result.test_accuracy,
               "cli_seconds": cli_seconds, "cli_peak_device_bytes": cli_peak_bytes,
@@ -799,6 +835,311 @@ def _fused_timings(device, dual, unfused, fused) -> dict:
     return timed
 
 
+# ---- the loader phases ----
+
+
+def _same_scene(got, expected, what: str) -> None:
+    """The loader's padded, normalized host arrays and statistics equal, bit
+    for bit, those of the scene built from the arrays that were written."""
+    for name in ("casi", "lidar", "casi_min", "casi_max", "lidar_min", "lidar_max"):
+        a, b = getattr(got, name), getattr(expected, name)
+        same = (a is None and b is None) or (
+            a is not None and b is not None and np.asarray(a).dtype == np.asarray(b).dtype
+            and np.array_equal(a, b))
+        check(same, f"{what}: the loader's {name} differs from the written arrays' scene")
+
+
+def _write(writer, root: Path, **sizes):
+    start = time.perf_counter()
+    arrays = writer(str(root), **sizes)
+    files = {str(f.relative_to(root)): f.stat().st_size for f in sorted(root.rglob("*"))
+             if f.is_file()}
+    return arrays, {"write_seconds": time.perf_counter() - start, "files": files,
+                    "bytes": sum(files.values())}
+
+
+def _read(loader: str, root: Path, train_ratio: float, test_ratio: float, device, reads: list):
+    """The train CLI's data set, read the way it reads it (seed, importer),
+    then put on the device; with the read and upload times and the bytes of
+    ``reads``, the files the loader opens for it."""
+    read_bytes = sum((root / name).stat().st_size for name in reads)
+    start = time.perf_counter()
+    set_run_seed()
+    data = get_importer_from_name("GeneratorImporter").read_data_set(
+        loader, str(root), train_ratio, test_ratio, NEIGHBORHOOD)
+    read_seconds = time.perf_counter() - start
+    source = data.sources["training"]
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    arrays = source.device_arrays(device)
+    torch.cuda.synchronize()
+    tensors = arrays if isinstance(arrays, tuple) else (arrays,)
+    counts = {split: data.targets(split).shape[0] for split in ("training", "test", "validation")}
+    return data, {"read_seconds": read_seconds, "read_bytes": read_bytes,
+                  "upload_seconds": time.perf_counter() - start,
+                  "device_scene_bytes": sum(t.numel() * t.element_size() for t in tensors),
+                  "targets": counts}
+
+
+def _loader_params() -> dict:
+    return {**load_algorithm_params(HYPELCNNModel().default_params(), str(PARAMS_PATH)),
+            "batch_size": LOADER_BATCH}
+
+
+def _loader_train_cli(device, loader: str, root: Path, log_root: Path, steps: int,
+                      train_ratio: float, test_ratio: float) -> dict:
+    """The train CLI on a dataset directory, HYPELCNN at full width, no
+    augmentation; its gather launches by batch size, logged losses and time."""
+    args = [f"--device={device.type}", f"--loader_name={loader}", f"--path={root}",
+            "--model_name=HYPELCNNModel", "--importer_name=GeneratorImporter",
+            f"--neighborhood={NEIGHBORHOOD}", f"--algorithm_param_path={PARAMS_PATH}",
+            f"--batch_size={LOADER_BATCH}", f"--train_ratio={train_ratio}",
+            f"--test_ratio={test_ratio}", f"--step={steps}", f"--save_checkpoint_steps={steps}",
+            f"--base_log_path={log_root}"]
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    start = time.perf_counter()
+    result, _ = _run_train_cli(args)
+    cli_seconds = time.perf_counter() - start
+    by_batch = _note_main_path()
+    (log_dir,) = [p for p in log_root.iterdir() if p.is_dir()]
+    losses = _logged_losses(log_dir)
+    check(len(losses) >= 1 and all(math.isfinite(v) for _, v in losses),
+          f"{loader}: non-finite or missing logged losses: {losses}")
+    return {"result": result, "log_dir": log_dir, "by_batch": by_batch,
+            "launches": window_gather_cuda.launches, "losses": losses,
+            "cli_seconds": cli_seconds, "cli_peak_device_bytes": torch.cuda.max_memory_allocated()}
+
+
+def _loader_steps(device, data, loader: str, run: dict) -> dict:
+    """The CLI's first step again (same seed, weights, batch and dropout
+    draws, so its loss is the CLI's first), the check that the CLI's last
+    logged loss is below it, and the steady step time (median of 3 runs of
+    30 steps after 10 warm-up steps) with its peak memory."""
+    trainer = _trainer(data, _loader_params(), device)
+    state = trainer.init_state()
+    tables = trainer.training_tables(10 + 3 * 30, LOADER_BATCH)
+    first_loss = float(trainer.train_step(state, tables, 0))
+    check(math.isfinite(first_loss) and run["losses"][-1][1] < first_loss,
+          f"{loader}: the loss did not fall from {first_loss}: {run['losses']}")
+    torch.cuda.reset_peak_memory_stats()
+    _timed_steps(trainer, state, tables, 1, 9)
+    runs = [_timed_steps(trainer, state, tables, 10 + 30 * i, 30) / 30 for i in range(3)]
+    return {"first_loss": first_loss, "step_seconds": statistics.median(runs),
+            "step_runs": runs, "step_peak_device_bytes": torch.cuda.max_memory_allocated(),
+            "tables": tables}
+
+
+
+
+def _loader_record(phase: str, written: dict, read: dict, run: dict, steps: dict) -> dict:
+    return {"phase": phase, "write": written, **read,
+            "gather_launches_by_batch": {str(b): n for b, n in sorted(run["by_batch"].items())},
+            "logged_losses": run["losses"], "first_loss": steps["first_loss"],
+            "test_oa": run["result"].test_accuracy,
+            "validation_oa": run["result"].validation_accuracy,
+            "cli_seconds": run["cli_seconds"],
+            "cli_peak_device_bytes": run["cli_peak_device_bytes"],
+            "step_seconds": steps["step_seconds"], "step_runs": steps["step_runs"],
+            "step_peak_device_bytes": steps["step_peak_device_bytes"]}
+
+
+def phase_loader_grss2013(device, work: Path) -> dict:
+    """GRSS2013's layout at its published 349 x 1905 (144-page uint16 CASI,
+    float32 LiDAR, uint8 TR/VA, shadow map) through ``GRSS2013DataLoader``:
+    the train CLI for 200 steps, then the infer CLI's ``all`` map against the
+    sweep of the same weights over the written arrays' ``Scene``."""
+    loader, root = "GRSS2013DataLoader", work / "grss2013"
+    arrays, written = _write(layouts.write_grss2013, root)
+    names = GRSS2013DataLoader
+    data, read = _read(loader, root, LOADER_TRAIN_RATIO, LOADER_TEST_RATIO, device, [
+        "2013_DFTC/" + name for name in (names.CASI_FILE, names.LIDAR_FILE,
+                                         names.TRAINING_FILE, names.VALIDATION_FILE)])
+    memory_scene = Scene(arrays["casi"], arrays["lidar"][:, :, None], NEIGHBORHOOD, True)
+    _same_scene(data.scene, memory_scene, loader)
+    run = _loader_train_cli(device, loader, root, work / "grss2013_log", LOADER_STEPS,
+                            LOADER_TRAIN_RATIO, LOADER_TEST_RATIO)
+    launches = _check_launches(loader, run["by_batch"], run["launches"], read["targets"],
+                               LOADER_STEPS, LOADER_BATCH)
+    check(run["result"].test_accuracy > LOADER_OA[loader],
+          f"{loader}: test OA {run['result'].test_accuracy}")
+    steps = _loader_steps(device, data, loader, run)
+
+    out_dir = work / "grss2013_all"
+    reset_launches()
+    start = time.perf_counter()
+    infer_for_classification.main([
+        f"--loader_name={loader}", f"--path={root}", f"--neighborhood={NEIGHBORHOOD}",
+        f"--algorithm_param_path={PARAMS_PATH}", f"--base_log_path={run['log_dir']}",
+        f"--output_path={out_dir}", "--domain=all", f"--device={device.type}"])
+    infer_seconds = time.perf_counter() - start
+    infer_launches = window_gather_cuda.launches
+    _note_main_path()
+    height = arrays["casi"].shape[0]
+    n_bands = (height + BATCH_ROWS - 1) // BATCH_ROWS
+    check(infer_launches == n_bands, f"{loader}: {infer_launches} launches in the sweep")
+    cli_map = imread(str(out_dir / "result_raw.tif"))
+    memory_map = predict_full_scene(run["result"].final_state.module, memory_scene, device=device)
+    check(np.array_equal(cli_map, memory_map),
+          f"{loader}: the infer CLI's map differs from the in-memory scene's")
+    emit({**_loader_record("loader_grss2013", written, read, run, steps), **launches,
+          "infer_launches": infer_launches, "infer_cli_seconds": infer_seconds,
+          "classes_in_map": len(np.unique(cli_map))})
+    return {"run": run}
+
+
+def phase_loader_grss2018(device, work: Path) -> None:
+    """DFC2018's published layout (CASI 1202 x 4172 x 50 uint16, LiDAR
+    2404 x 8344 float32 with values above 300, GT 1202 x 4768 uint8 with
+    10% of its pixels labelled) through ``GRSS2018DataLoader``: the dual
+    gather on the card against the host windows, the train CLI for 200
+    steps, and the infer CLI's ``gt`` map."""
+    loader, root = "GRSS2018DataLoader", work / "grss2018"
+    arrays, written = _write(layouts.write_grss2018, root)
+    names = GRSS2018DataLoader
+    data, read = _read(loader, root, LOADER_TRAIN_RATIO, LOADER_TEST_RATIO, device, [
+        "2018_DFTC/" + name for name in (names.CASI_FILE, names.LIDAR_FILE, names.GT_FILE)])
+    lidar = arrays["lidar"][:, :, None].copy()
+    outliers = int((lidar > 300).sum())
+    check(outliers > 0, "the LiDAR holds no value above 300")
+    lidar[lidar > 300] = 0
+    _same_scene(data.scene, DualResScene(arrays["casi"][:, :, :-2], lidar, NEIGHBORHOOD, True),
+                loader)
+    del lidar
+
+    # the dual gather on the card, against the host's windows
+    every = np.vstack([data.targets(split) for split in ("training", "test", "validation")])
+    rows = every[np.random.default_rng(SEED).choice(len(every), DUAL_CHECKS, replace=False), :2]
+    casi, lidar = data.sources["training"].device_arrays(device)
+    windows = gather_patches_dual(casi, lidar, torch.from_numpy(rows.astype(np.int32)).to(device),
+                                  NEIGHBORHOOD).cpu().numpy()
+    host = np.stack([data.scene.get_data_point(int(x), int(y)) for x, y in rows])
+    check(windows.dtype == host.dtype and np.array_equal(windows, host),
+          f"{loader}: gather_patches_dual on the card differs from the host windows")
+
+    run = _loader_train_cli(device, loader, root, work / "grss2018_log", LOADER_STEPS,
+                            LOADER_TRAIN_RATIO, LOADER_TEST_RATIO)
+    # a DualResScene goes through gather_patches_dual: the CUDA window gather
+    # is not on this path
+    check(run["launches"] == 0, f"{loader}: {run['launches']} window_gather launches")
+    check(run["result"].test_accuracy > LOADER_OA[loader],
+          f"{loader}: test OA {run['result'].test_accuracy}")
+    steps = _loader_steps(device, data, loader, run)
+
+    out_dir = work / "grss2018_gt"
+    start = time.perf_counter()
+    infer_for_classification.main([
+        f"--loader_name={loader}", f"--path={root}", f"--output_path={out_dir}",
+        "--domain=gt", f"--device={device.type}"])
+    gt_seconds = time.perf_counter() - start
+    gt_map = imread(str(out_dir / "result_raw.tif"))
+    expected = np.full(data.scene.get_scene_shape(), 255, dtype=np.uint8)
+    ys, xs = np.nonzero(arrays["gt"])
+    expected[ys + GRSS2018DataLoader.Y_DELTA, xs + GRSS2018DataLoader.X_DELTA] = \
+        arrays["gt"][ys, xs] - 1
+    check(np.array_equal(gt_map, expected), f"{loader}: the gt map differs from the GT written")
+    emit({**_loader_record("loader_grss2018", written, read, run, steps),
+          "lidar_values_above_300": outliers, "dual_gather_windows_checked": DUAL_CHECKS,
+          "window_gather_launches": run["launches"], "gt_cli_seconds": gt_seconds,
+          "gt_map_shape": list(gt_map.shape)})
+
+
+def phase_loader_gulfport(device, work: Path) -> dict:
+    """MUUFL Gulfport's layout at 325 x 220 x 64 float32 (LiDAR, GT,
+    shadowed and deshadowed variants, shadow-corrected GT, shadow map):
+    the train CLI through ``GULFPORTALTDataLoader`` (ORIGINAL mode) for 200
+    steps, the CUDA gather at C = 65; then a trainer on the MIXED
+    ``MultiScene`` for 50 steps and 10,240 member draws."""
+    loader, root = "GULFPORTALTDataLoader", work / "gulfport"
+    arrays, written = _write(layouts.write_gulfport, root)
+    data, read = _read(loader, root, LOADER_TRAIN_RATIO, 0.0, device, [
+        f"GULFPORT/muulf_{name}.tif" for name in ("hsi", "lidar", "gt_shadow_corrected",
+                                                  "shadow_map")])
+    _same_scene(data.scene, Scene(arrays["hsi"], arrays["lidar"][:, :, None], NEIGHBORHOOD, True),
+                loader)
+    check(read["targets"]["test"] == 0, f"{loader}: a test split by construction empty is not")
+    run = _loader_train_cli(device, loader, root, work / "gulfport_log", LOADER_STEPS,
+                            LOADER_TRAIN_RATIO, 0.0)
+    launches = _check_launches(loader, run["by_batch"], run["launches"], read["targets"],
+                               LOADER_STEPS, LOADER_BATCH)
+    check(run["result"].validation_accuracy > LOADER_OA[loader],
+          f"{loader}: validation OA {run['result'].validation_accuracy}")
+    steps = _loader_steps(device, data, loader, run)
+
+    # MIXED: the original and the shadowed variant three times
+    mixed_loader = GULFPORTALTDataLoader(str(root))
+    mixed_loader.load_mode = LoadingMode.MIXED
+    mixed = mixed_loader.load_data(NEIGHBORHOOD, True)
+    set_run_seed()
+    samples = mixed_loader.load_samples(LOADER_TRAIN_RATIO, 0.0)
+    source = ScenePatchSource(mixed)
+    trainer = ClassificationTrainer(
+        model=HYPELCNNModel(), class_count=11, algorithm_params=_loader_params(), scene=mixed,
+        sample_set=samples, sources={"training": source, "test": source, "validation": source},
+        data_shape=mixed.get_data_shape(), device=device)
+    losses = []
+    reset_launches()
+    start = time.perf_counter()
+    mixed_result = trainer.fit(MIXED_STEPS, LOADER_BATCH, log_every=10,
+                               progress_callback=lambda s, l: losses.append((s, l)))
+    mixed_seconds = time.perf_counter() - start
+    _note_main_path()
+    check(window_gather_cuda.launches == 0,
+          f"MIXED: {window_gather_cuda.launches} window_gather launches")
+    check(all(math.isfinite(v) for _, v in losses) and losses[-1][1] < losses[0][1],
+          f"MIXED: the loss did not fall: {losses}")
+    stacked, lookup = source.device_arrays(device)
+    check(stacked.shape[0] == 2 and lookup.tolist() == [0, 1, 1, 1],
+          f"MIXED: {stacked.shape[0]} scenes on the device, lookup {lookup.tolist()}")
+    coords = np.resize(samples.training_targets[:, :2], (MEMBER_DRAWS, 2)).astype(np.int32)
+    windows = source.gather((stacked, lookup), None, torch.from_numpy(coords).to(device),
+                            torch.Generator(device=device).manual_seed(SEED)).cpu().numpy()
+    original, shadowed = mixed.scenes[0], mixed.scenes[1]
+    shadowed_draws = 0
+    for (x, y), window in zip(coords.tolist(), windows):
+        from_original = np.array_equal(window, original.get_data_point(x, y))
+        from_shadowed = np.array_equal(window, shadowed.get_data_point(x, y))
+        check(from_original != from_shadowed,
+              f"MIXED: the window at ({x}, {y}) is not exactly one member's host window")
+        shadowed_draws += from_shadowed
+    share = shadowed_draws / MEMBER_DRAWS
+    check(0.70 <= share <= 0.80, f"MIXED: {share} of the draws are shadowed")
+    emit({**_loader_record("loader_gulfport", written, read, run, steps), **launches,
+          "mixed": {"steps": MIXED_STEPS, "seconds": mixed_seconds, "losses": losses,
+                    "validation_oa": mixed_result.validation_accuracy,
+                    "scenes_on_device": int(stacked.shape[0]), "lookup": lookup.tolist(),
+                    "device_bytes": stacked.numel() * stacked.element_size(),
+                    "draws": MEMBER_DRAWS, "shadowed_share": share,
+                    "window_gather_launches": 0}})
+    return {"scene": data.scene, "tables": steps["tables"], "run": run}
+
+
+def phase_loader_avon(device, work: Path) -> dict:
+    """AVON's layout at 500 x 300 x 360 (no published size): the uint16 cube
+    stored (360, 300, 610) and four 1-bit BMP masks, through
+    ``AVONDataLoader``; the train CLI for 100 steps, the CUDA gather at C = 360."""
+    loader, root = "AVONDataLoader", work / "avon"
+    arrays, written = _write(layouts.write_avon, root, **AVON_SIZE)
+    data, read = _read(loader, root, LOADER_TRAIN_RATIO, LOADER_TEST_RATIO, device, [
+        "AVON/" + name for name in [avon.SCENE_FILE] + [
+            avon.TARGET_FILE.format(mask) for mask in ("1_nsh", "1_sh", "2_nsh", "2_sh")]])
+    casi = arrays["casi"].copy()
+    np.clip(casi, None, np.percentile(casi, 95, axis=[0, 1]).astype(casi.dtype), out=casi)
+    _same_scene(data.scene, Scene(casi, None, NEIGHBORHOOD, True, casi_min=0), loader)
+    del casi
+    run = _loader_train_cli(device, loader, root, work / "avon_log", AVON_STEPS,
+                            LOADER_TRAIN_RATIO, LOADER_TEST_RATIO)
+    launches = _check_launches(loader, run["by_batch"], run["launches"], read["targets"],
+                               AVON_STEPS, LOADER_BATCH)
+    check(run["result"].test_accuracy > LOADER_OA[loader],
+          f"{loader}: test OA {run['result'].test_accuracy}")
+    steps = _loader_steps(device, data, loader, run)
+    emit({**_loader_record("loader_avon", written, read, run, steps), **launches,
+          "scene": list(data.scene.get_scene_shape()) + [data.scene.get_casi_band_count()],
+          "stored_cube": list(arrays["cube"].shape)})
+    return {"scene": data.scene, "tables": steps["tables"], "run": run}
+
+
 def _event_times(fn, inputs) -> list:
     """Per-call device time in ms, from CUDA events around each call. A
     sleep kernel first holds the stream until every call is queued behind
@@ -870,10 +1211,11 @@ def _bands(device, count: int = 20) -> list:
                      alpha=min(i * BATCH_ROWS, HEIGHT - BATCH_ROWS)) for i in range(count)]
 
 
-def phase_kernels(device, scene, launches: int, train, families: dict) -> None:
+def phase_kernels(device, scene, launches: int, train, families: dict, loaders: dict) -> None:
     """Kernel rows; ``launches`` are the sweep's, ``train["launches"]`` the
     train CLI run's, split by batch size; ``families`` the family phases'
-    results, with their launches by batch size."""
+    results, with their launches by batch size; ``loaders`` the GULFPORT and
+    AVON phases', whose train CLI runs launch at C = 65 and C = 360."""
     scene_dev = scene.device_scene(device)
     rows = [_gather_row(scene_dev, _bands(device), launches)]
     # the training path's shapes: the step's batch and the eval drain's
@@ -906,6 +1248,11 @@ def phase_kernels(device, scene, launches: int, train, families: dict) -> None:
             fam["scene"].device_scene(device), _training_batches(fam["tables"], 0, 21),
             fam["train_launches"][family.batch],
             f" ({family.model} training step)", k=2 * family.neighborhood + 1))
+    for name, note in (("loader_gulfport", "GULFPORT-ALT"), ("loader_avon", "AVON")):
+        phase = loaders[name]
+        rows.append(_gather_row(
+            phase["scene"].device_scene(device), _training_batches(phase["tables"], 0, 21),
+            phase["run"]["by_batch"][LOADER_BATCH], f" ({note} training step)"))
     emit({"kernels": rows})
 
 
@@ -1005,8 +1352,13 @@ def main() -> int:
         timed("infer_trained", phase_infer_trained, device, Path(work), train)
         for family in FAMILIES:
             families[family.phase] = timed(family.phase, phase_family, device, Path(work), family)
+        timed("loader_grss2013", phase_loader_grss2013, device, Path(work))
+        timed("loader_grss2018", phase_loader_grss2018, device, Path(work))
+        loaders = {"loader_gulfport": timed("loader_gulfport", phase_loader_gulfport, device,
+                                            Path(work)),
+                   "loader_avon": timed("loader_avon", phase_loader_avon, device, Path(work))}
     timed("fused_levels", phase_fused_levels, device, scene, families["family_dualcnn"])
-    timed("kernels", phase_kernels, device, scene, launches, train, families)
+    timed("kernels", phase_kernels, device, scene, launches, train, families, loaders)
     timed("profile", phase_profile, device, scene, module)
     timed("profile_train", phase_profile_train, train)
     torch.cuda.synchronize()

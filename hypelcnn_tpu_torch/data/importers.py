@@ -4,11 +4,15 @@ Each importer yields a :class:`PatchSource` per split, which the training
 step and the eval drains call on the device:
 
 - ``GeneratorImporter`` -> :class:`ScenePatchSource`: the padded scene lives
-  on the device and every batch of windows is cut from it there by
+  on the device and every batch of windows is cut from it there. A
+  ``Scene`` goes through
   :func:`~hypelcnn_tpu_torch.ops.window_gather.gather_patches`, the CUDA
-  window gather on a CUDA scene.
+  window gather on a CUDA scene; a ``DualResScene`` through
+  ``gather_patches_dual`` and a ``MultiScene`` through ``gather_from_multi``,
+  which draws each window's member from the generator it is given.
 - ``InMemoryImporter`` -> :class:`ArrayPatchSource`: every split's windows are
-  cut on the host once (``Scene.get_data_point``), moved to the device once,
+  cut on the host once (``get_data_point``; a ``MultiScene`` draws its
+  members from the global ``np.random`` state), moved to the device once,
   and a step selects rows of it.
 - ``RecordImporter`` reads the ``.npz`` patch cache of the record writer,
   which is not ported yet.
@@ -17,38 +21,58 @@ step and the eval drains call on the device:
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
 
 from hypelcnn_tpu_torch.core.registry import get_loader_from_name, register_importer
 from hypelcnn_tpu_torch.data.loaders.base import SampleSet
-from hypelcnn_tpu_torch.ops.window_gather import gather_patches
+from hypelcnn_tpu_torch.data.scene import DualResScene, MultiScene
+from hypelcnn_tpu_torch.ops.window_gather import (
+    gather_from_multi,
+    gather_patches,
+    gather_patches_dual,
+)
 
 
 class PatchSource:
     """Patch access for one split: ``gather(device_arrays(device), idx, coords)``
-    returns the ``[B, k, k, C]`` windows of the rows ``idx`` at ``coords``."""
+    returns the ``[B, k, k, C]`` windows of the rows ``idx`` at ``coords``.
+    A source whose ``draws_members`` is true draws from the ``generator``
+    passed to ``gather``; the others take none."""
 
-    def device_arrays(self, device) -> torch.Tensor:
+    draws_members = False
+
+    def device_arrays(self, device):
         raise NotImplementedError
 
-    def gather(self, arrays: torch.Tensor, idx: torch.Tensor, coords: torch.Tensor
-               ) -> torch.Tensor:
+    def gather(self, arrays, idx: torch.Tensor, coords: torch.Tensor,
+               generator: Optional[torch.Generator] = None) -> torch.Tensor:
         raise NotImplementedError
 
 
 class ScenePatchSource(PatchSource):
     def __init__(self, scene):
         self.scene = scene
+        self.draws_members = isinstance(scene, MultiScene)
 
-    def device_arrays(self, device) -> torch.Tensor:
+    def device_arrays(self, device):
+        if isinstance(self.scene, MultiScene):
+            return self.scene.device_scenes(device)
+        if isinstance(self.scene, DualResScene):
+            return self.scene.device_modalities(device)
         return self.scene.device_scene(device)
 
-    def gather(self, arrays, idx, coords):
+    def gather(self, arrays, idx, coords, generator=None):
         """``coords``: contiguous int32 ``[B, 2]`` (x, y) on the scene's device."""
-        return gather_patches(arrays, coords, 2 * self.scene.neighborhood + 1)
+        n = self.scene.neighborhood
+        if isinstance(self.scene, MultiScene):
+            return gather_from_multi(arrays, coords, n, generator=generator)
+        if isinstance(self.scene, DualResScene):
+            casi, lidar = arrays
+            return gather_patches_dual(casi, lidar, coords, n, DualResScene.CASI_SCALE)
+        return gather_patches(arrays, coords, 2 * n + 1)
 
 
 class ArrayPatchSource(PatchSource):
@@ -65,7 +89,7 @@ class ArrayPatchSource(PatchSource):
             self._device_patches[device] = patches
         return patches
 
-    def gather(self, arrays, idx, coords):
+    def gather(self, arrays, idx, coords, generator=None):
         return arrays.index_select(0, idx)
 
 

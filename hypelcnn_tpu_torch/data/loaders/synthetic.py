@@ -14,7 +14,7 @@ from urllib.parse import parse_qs, urlparse
 import numpy as np
 
 from hypelcnn_tpu_torch.core.registry import register_loader
-from hypelcnn_tpu_torch.data.loaders.base import DataLoader, SampleSet
+from hypelcnn_tpu_torch.data.loaders.base import DataLoader, SampleSet, calculate_shadow_ratio
 from hypelcnn_tpu_torch.data.scene import Scene
 from hypelcnn_tpu_torch.data.splitters import (
     read_targets_from_image,
@@ -59,6 +59,12 @@ class SyntheticDataLoader(DataLoader):
                  + rng.normal(0, 0.3, size=(h, w, 1)).astype(np.float32))
         self._gt, self._casi, self._lidar = gt, casi, lidar
 
+    def scene_arrays(self):
+        """``(gt, casi, lidar)``: the ``[H, W]`` uint8 class map, the
+        ``[H, W, bands]`` uint16 CASI and the ``[H, W, 1]`` float32 LiDAR."""
+        self._materialize()
+        return self._gt, self._casi, self._lidar
+
     def load_data(self, neighborhood: int, normalize: bool) -> Scene:
         self._materialize()
         return Scene(casi=self._casi.copy(), lidar=self._lidar.copy(),
@@ -74,11 +80,29 @@ class SyntheticDataLoader(DataLoader):
         return SampleSet(training_targets=train_set, test_targets=test_set,
                          validation_targets=validation_set)
 
+    def load_shadow_map(self, neighborhood: int, data_set):
+        """The left third of the scene is in shadow."""
+        self._materialize()
+        shadow_map = np.zeros((self.height, self.width), dtype=np.uint8)
+        shadow_map[:, : self.width // 3] = 1
+        shadow_map = np.pad(shadow_map, neighborhood, mode="symmetric")
+        ratio = None
+        if data_set is not None:
+            ratio = calculate_shadow_ratio(data_set.casi, shadow_map,
+                                           np.logical_not(shadow_map).astype(int))
+        return shadow_map, ratio
+
     def get_class_count(self) -> range:
         return range(0, self.classes)
 
     def get_model_base_dir(self) -> str:
         return self.base_dir if self.base_dir.endswith("/") else self.base_dir + "/"
+
+    def get_shadow_checkpoints(self):
+        """The real loaders' relative layout, so the frozen-generator shadow
+        augmentation can run on a synthetic scene."""
+        return {name: f"shadow_gen_model/{name}"
+                for name in ("cycle_gan", "dcl_gan", "dcl_cycle_gan", "gan_x2y", "cut_x2y")}
 
     def get_samples_color_list(self) -> np.ndarray:
         rng = np.random.default_rng(3)

@@ -5,6 +5,10 @@ each band's pixel coordinates on the device, gathers the band's windows with
 one :func:`~hypelcnn_tpu_torch.ops.window_gather.gather_patches` call, runs
 the eval-mode forward and keeps the argmax class ids on the device. Only the
 finished ``uint8`` class map comes back to the host.
+
+A ``MultiScene`` is swept through its member 0, as in the JAX package. A
+``DualResScene`` has no fused device scene, so both functions raise on one
+(``DualResScene.device_scene``): the JAX package cannot sweep one either.
 """
 
 from __future__ import annotations

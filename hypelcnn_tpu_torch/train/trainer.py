@@ -5,8 +5,10 @@ precomputed index stream selects the batch's coordinates and labels from
 device tables, the window gather cuts the batch from the device-resident
 scene (the CUDA kernel on a CUDA scene), augmentation and dropout draw from
 generators seeded by (seed, purpose, step), then forward, backward and the
-optimizer update. The loss stays on the device and is read only where a log
-or hook cadence is crossed.
+optimizer update. A ``MultiScene`` draws each window's member from such a
+generator too, in every step and every eval-drain batch, as the JAX trainer
+draws from its gather key. The loss stays on the device and is read only
+where a log or hook cadence is crossed.
 
 Hooks fire where the JAX trainer's fire for the same cadences: a test drain
 every ``test_cadence`` steps (not at the last step), a validation drain on its
@@ -144,6 +146,14 @@ class ClassificationTrainer:
 
     # ---- the step ----
 
+    def _member_generator(self, source, purpose: str, step: int) -> Optional[torch.Generator]:
+        """The generator a multi-scene source draws each window's member
+        from, seeded by (seed, purpose, step); ``None`` for other sources,
+        which draw nothing."""
+        if not source.draws_members:
+            return None
+        return self.rng_pool.generator(purpose, step, self.device)
+
     def train_step(self, state: TrainState, tables: TrainingTables, step: int) -> torch.Tensor:
         """One optimizer step on the batch of row ``step``; returns the loss,
         on the device, without reading it."""
@@ -151,7 +161,8 @@ class ClassificationTrainer:
         coords = tables.coords.index_select(0, idx)
         label_ids = tables.labels.index_select(0, idx)
         source = self.sources["training"]
-        patches = source.gather(source.device_arrays(self.device), idx, coords)
+        patches = source.gather(source.device_arrays(self.device), idx, coords,
+                                self._member_generator(source, "member", step))
         patches = augment_batch(patches, self.augmentation_info,
                                 generator=self.rng_pool.generator("augment", step, self.device))
         labels = (label_ids.unsqueeze(1) == tables.class_ids).to(torch.float32)
@@ -209,7 +220,9 @@ class ClassificationTrainer:
                 confusion = torch.zeros((self.class_count, self.class_count), dtype=torch.int64,
                                         device=self.device)
                 for batch in range(idx_d.shape[0]):
-                    patches = source.gather(arrays, idx_d[batch], coords_d[batch])
+                    patches = source.gather(arrays, idx_d[batch], coords_d[batch],
+                                            self._member_generator(source, f"eval-member-{split}",
+                                                                   batch))
                     preds = torch.argmax(module(patches).y_conv, dim=1)
                     confusion_update(confusion, labels_d[batch], preds, mask_d[batch])
         finally:

@@ -130,5 +130,5 @@ def test_image_helpers_match_jax(tmp_path):
         jax_inference.create_target_image_via_samples(JaxSampleSet(*rows), (6, 9)))
     imwrite(str(tmp_path / "m.npy"), class_map)
     np.testing.assert_array_equal(np.load(tmp_path / "m.npy"), class_map)
-    with pytest.raises(ValueError):
-        imwrite(str(tmp_path / "f.tif"), class_map.astype(np.float32))
+    with pytest.raises(ValueError):  # the writer has no float64 sample format
+        imwrite(str(tmp_path / "f.tif"), class_map.astype(np.float64))

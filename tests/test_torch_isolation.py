@@ -1,6 +1,8 @@
 """The PyTorch port stands alone: nothing in it, nor in ``chip_smoke.py`` or
-the port's scripts (``scripts/torch_*.py``), imports jax, flax, optax, orbax, scikit-learn or the JAX package, and its
-CLIs run on CUDA unless asked for the CPU."""
+the port's scripts (``scripts/torch_*.py``), imports jax, flax, optax, orbax,
+scikit-learn, the JAX package, or the image libraries the JAX package reads
+through (PIL, imageio, tifffile), none of which the card's machine has; and
+its CLIs run on CUDA unless asked for the CPU."""
 
 import ast
 import pathlib
@@ -12,7 +14,8 @@ import torch
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT = ROOT / "hypelcnn_tpu_torch"
-FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "sklearn", "hypelcnn_tpu"}
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "sklearn", "hypelcnn_tpu",
+             "PIL", "imageio", "tifffile"}
 
 
 def _port_files():

@@ -36,7 +36,7 @@ def cuda():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("k", [1, 3, 5, 7, 9])
-@pytest.mark.parametrize("channels", [12, 145])
+@pytest.mark.parametrize("channels", [12, 65, 145, 360])
 def test_window_gather_matches_plain(cuda, k, channels):
     """Bit for bit, out-of-range and negative coordinates included."""
     rng = np.random.default_rng(k * channels)
@@ -81,6 +81,24 @@ def test_window_gather_matches_plain_at_family_shapes(cuda, batch, k):
     torch.cuda.synchronize()
     assert got.shape == (batch, k, k, 145)
     assert torch.equal(got, gather_patches_torch(scene, coords, k))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("channels, height, width", [(65, 325, 220), (360, 500, 300)])
+@pytest.mark.parametrize("batch", [48, 8192])
+def test_window_gather_matches_plain_at_loader_shapes(cuda, channels, height, width, batch):
+    """GULFPORT's 64 bands plus LiDAR and AVON's 360 bands, at the training
+    step's batch and the eval drain's, k = 3, bit for bit."""
+    rng = np.random.default_rng(channels + batch)
+    scene = torch.from_numpy(rng.normal(size=(height + 2, width + 2, channels))
+                             .astype(np.float32)).to(cuda)
+    coords = torch.from_numpy(np.stack([rng.integers(0, width, batch),
+                                        rng.integers(0, height, batch)],
+                                       axis=1).astype(np.int32)).to(cuda)
+    got = window_gather_cuda(scene, coords, 3)
+    torch.cuda.synchronize()
+    assert got.shape == (batch, 3, 3, channels)
+    assert torch.equal(got, gather_patches_torch(scene, coords, 3))
 
 
 @pytest.mark.cuda
