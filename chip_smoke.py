@@ -89,11 +89,44 @@ times and peak memory:
 - ``loader_avon``: AVON's layout at 500 x 300 x 360 (stored 360 x 300 x 610,
   four 1-bit BMP masks), 100 steps, no LiDAR (C = 360), test OA above 0.75.
 
+Then the five GAN phases, on the GRSS2013 layout ``loader_grss2013`` wrote
+(349 x 1905, 144 CASI bands):
+
+- ``gan_train``: ``gan_train_for_shadow`` (cycle_gan, random pairing, batch
+  32) for 2,000 steps, validation and checkpoints every 1,000: both pair
+  arrays on the card at the size the shadow map implies, a finite generator
+  loss at each cadence, 2 points in each ``best_ratio_*.json``,
+  ``ckpt_params_1000``, ``ckpt_params_2000``, ``gan_params`` and 2 full
+  states; the saved state restores bit for bit and a rerun to 2,500 resumes
+  at 2,000. Then the step through the API (median of 3 runs of 100 steps),
+  its launches and idle share over 20 traced steps, the CLI's seconds and
+  peak memory;
+- ``gan_families``: each of the seven families for 200 steps with finite
+  losses, its step (median of 3 runs of 10), launches and idle share over 5
+  traced steps, and 3
+  steps card against CPU from one init on the same batches and pool draws
+  (step 1 within 1e-4); dcl_cycle_gan equal to dcl_gan bit for bit under
+  cuDNN's deterministic algorithms;
+- ``gan_infer``: ``gan_infer_for_shadow`` on ``gan_params`` at 6,000
+  samples, both divergences finite;
+- ``gan_infer_image``: ``gan_infer_image_for_shadow`` untranslated, shadow,
+  deshadow and shadow with ``--convert_all``: 349 x 1905 x 144 TIFFs in the
+  loader's dtype, pixels outside the mask those of the untranslated output,
+  4,096 translated pixels equal to the CPU port's to 1e-5 (conv and Toeplitz
+  generators), and ``translate_scene`` timed both ways beside its bound;
+- ``gan_augmented``: ``gan_params`` installed at GRSS2013's declared
+  cycle_gan path, the train CLI at HYPELCNN's full width, batch 48, with
+  ``--augment_data_with_shadow cycle_gan`` at threshold 0.3 for 200 steps,
+  then ``simple`` for 50: the gather's exact launches, 0.25 to 0.35 of the
+  windows shadowed, a loss below the first step's, test OA at least 0.9, and
+  the step with and without the shadow op.
+
 Then ``fused_levels``: fused and unfused multi-scale levels give the same
 logits on 256 windows at full width, HYPELCNN and DUALCNN, and DUALCNN's
 sweep and step are timed both ways; and the ``kernels`` line gains the k = 5
 band, each family's training step, the GULFPORT and AVON training steps
-(C = 65 and 360) and a single window (the launch floor, with the main path's
+(C = 65 and 360) and a single window; the training step's row counts the
+GAN-augmented runs' steps too (the launch floor, with the main path's
 launches at B = 1, which must be none). A last line
 before the result gives each phase's seconds.
 
@@ -106,6 +139,8 @@ import contextlib
 import io
 import json
 import math
+import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -118,13 +153,19 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from hypelcnn_tpu_torch.apps import infer_for_classification, train_for_classification
+from hypelcnn_tpu_torch.apps import (
+    gan_infer_for_shadow,
+    gan_infer_image_for_shadow,
+    gan_train_for_shadow,
+    infer_for_classification,
+    train_for_classification,
+)
 from hypelcnn_tpu_torch.core.config import load_algorithm_params
 from hypelcnn_tpu_torch.core.platform import resolve_device
 from hypelcnn_tpu_torch.core.registry import get_importer_from_name, get_model_from_name
-from hypelcnn_tpu_torch.core.rng import set_run_seed
+from hypelcnn_tpu_torch.core.rng import RngPool, set_run_seed
 from hypelcnn_tpu_torch.data import layouts
-from hypelcnn_tpu_torch.data.augmentation import AugmentationInfo
+from hypelcnn_tpu_torch.data.augmentation import AugmentationInfo, augment_batch
 from hypelcnn_tpu_torch.data.importers import ScenePatchSource
 from hypelcnn_tpu_torch.data.loaders import avon
 from hypelcnn_tpu_torch.data.loaders.base import LoadingMode
@@ -133,6 +174,8 @@ from hypelcnn_tpu_torch.data.loaders.grss2018 import GRSS2018DataLoader
 from hypelcnn_tpu_torch.data.loaders.gulfport_alt import GULFPORTALTDataLoader
 from hypelcnn_tpu_torch.data.loaders.synthetic import SyntheticDataLoader
 from hypelcnn_tpu_torch.data.scene import DualResScene, Scene
+from hypelcnn_tpu_torch.gan.shadow_ops import build_shadow_creators
+from hypelcnn_tpu_torch.gan.wrapper_registry import get_trainer_dict
 from hypelcnn_tpu_torch.infer.scene_inference import (
     create_target_image_via_samples,
     predict_full_scene,
@@ -142,8 +185,12 @@ from hypelcnn_tpu_torch.kernels.window_gather import reset_launches, window_gath
 from hypelcnn_tpu_torch.models.hypelcnn import HYPELCNNModel
 from hypelcnn_tpu_torch.models.layers import SlimBatchNorm, fuse_variables, init_parameters
 from hypelcnn_tpu_torch.ops.window_gather import gather_patches_dual, gather_patches_torch
-from hypelcnn_tpu_torch.train.checkpoint import checkpoint_steps, save_checkpoint
-from hypelcnn_tpu_torch.train.trainer import ClassificationTrainer
+from hypelcnn_tpu_torch.train.checkpoint import (
+    checkpoint_steps,
+    restore_checkpoint,
+    save_checkpoint,
+)
+from hypelcnn_tpu_torch.train.trainer import ClassificationTrainer, make_epoch_index_stream
 from hypelcnn_tpu_torch.utils.tiff_io import imread, read_tags
 
 ROOT = Path(__file__).resolve().parent
@@ -193,6 +240,12 @@ AVON_SIZE = {"height": 500, "width": 300}  # AVON's size is not published; this 
 LOADER_OA = {"GRSS2013DataLoader": 0.5, "GRSS2018DataLoader": 0.5,
              "GULFPORTALTDataLoader": 0.5, "AVONDataLoader": 0.75}  # chance 1/15, 1/20, 1/11, 1/2
 FUSED_PAIRS = 10  # DUALCNN step pairs, unfused against fused
+# the GAN phases, on the GRSS2013 layout (144 CASI bands)
+GAN_BANDS, GAN_BATCH, GAN_STEPS, GAN_VALIDATION, GAN_RESUME_STEPS = 144, 32, 2000, 1000, 2500
+GAN_TIMED_STEPS, GAN_FAMILY_STEPS, TRANSLATE_CHECKS = 100, 200, 4096
+GAN_FAMILIES = ["cycle_gan", "gan_x2y", "gan_y2x", "cut_x2y", "cut_y2x", "dcl_gan",
+                "dcl_cycle_gan"]
+GAN_AUGMENTED_STEPS, SIMPLE_AUGMENTED_STEPS, SHADOW_THRESHOLD = 200, 50, 0.3
 # the gather's launches by batch size in each main-path run (CLI runs), in order
 MAIN_PATH_RUNS: list = []
 
@@ -394,12 +447,16 @@ def _train_args(log_root: Path, steps: int, family: Family = HYPELCNN) -> list:
             f"--base_log_path={log_root}"]
 
 
-def _run_train_cli(args: list):
-    """Run the train CLI; its printout is kept, not shown (it holds every flag)."""
+def _run_quiet(main, args: list):
+    """Run a CLI's ``main``; its printout is kept, not shown (it holds every flag)."""
     out = io.StringIO()
     with contextlib.redirect_stdout(out):
-        result = train_for_classification.main(args)
+        result = main(args)
     return result, out.getvalue()
+
+
+def _run_train_cli(args: list):
+    return _run_quiet(train_for_classification.main, args)
 
 
 def _eval_batches(n: int) -> int:
@@ -985,7 +1042,7 @@ def phase_loader_grss2013(device, work: Path) -> dict:
     emit({**_loader_record("loader_grss2013", written, read, run, steps), **launches,
           "infer_launches": infer_launches, "infer_cli_seconds": infer_seconds,
           "classes_in_map": len(np.unique(cli_map))})
-    return {"run": run}
+    return {"run": run, "root": root}
 
 
 def phase_loader_grss2018(device, work: Path) -> None:
@@ -1140,6 +1197,390 @@ def phase_loader_avon(device, work: Path) -> dict:
     return {"scene": data.scene, "tables": steps["tables"], "run": run}
 
 
+# ---- the GAN phases ----
+
+
+def _gan_args(root: Path, base: Path, steps: int, *extra) -> list:
+    return ["--device=cuda", "--loader_name=GRSS2013DataLoader", f"--path={root}",
+            "--gan_type=cycle_gan", "--pairing_method=random", f"--batch_size={GAN_BATCH}",
+            f"--step={steps}", f"--validation_steps={GAN_VALIDATION}",
+            f"--base_log_path={base}", *extra]
+
+
+def _gan_family_step_fn(family: str, pairs: dict, device, steps: int, seed: int = SEED):
+    """A ``family`` trainer at the CLI's defaults over the device pairs, its
+    state from ``seed`` and the CLI's step function over a fresh index stream."""
+    trainer = get_trainer_dict({}, GAN_BANDS, steps)[family]
+    state = trainer.init_state(device, torch.Generator().manual_seed(seed))
+    rng = RngPool(seed)
+    stream = make_epoch_index_stream(pairs["normal"].shape[0], GAN_BATCH, steps,
+                                     rng.numpy_rng("gan-shuffle"))
+    step_fn = gan_train_for_shadow.build_step_fn(
+        trainer, pairs["normal"], pairs["shadow"], torch.from_numpy(stream).to(device),
+        pairs["ratio"], 0.0, rng)
+    return trainer, state, step_fn
+
+
+def _gan_steps_time(step_fn, state, start: int, count: int) -> float:
+    torch.cuda.synchronize()
+    begin = time.perf_counter()
+    for step in range(start, start + count):
+        step_fn(state, step)
+    torch.cuda.synchronize()
+    return time.perf_counter() - begin
+
+
+def _gan_step_record(step_fn, state, start: int, count: int, traced_steps: int = 20) -> dict:
+    """The steady step (median of 3 runs of ``count`` steps after
+    ``traced_steps`` warm-up steps), then device time, launches and idle
+    share over ``traced_steps`` traced steps (``3 * count + 3 *
+    traced_steps`` steps from ``start`` in all)."""
+    _gan_steps_time(step_fn, state, start, traced_steps)
+    start += traced_steps
+    runs = []
+    for _ in range(3):
+        runs.append(_gan_steps_time(step_fn, state, start, count) / count)
+        start += count
+    untraced_ms = _gan_steps_time(step_fn, state, start, traced_steps) * 1e3
+
+    def traced():
+        for step in range(start + traced_steps, start + 2 * traced_steps):
+            step_fn(state, step)
+
+    _, profile = _traced(traced, untraced_ms, top=6)
+    return {"step_seconds": statistics.median(runs), "step_runs": runs,
+            "launches_per_step": profile["kernel_launches"] / traced_steps,
+            "idle_share": profile["device_idle_share"], "profile": profile}
+
+
+def phase_gan_train(device, work: Path, root: Path) -> dict:
+    """``gan_train_for_shadow`` (cycle_gan, random pairing, batch 32) on the
+    GRSS2013 layout that ``loader_grss2013`` wrote: 2,000 steps, validation
+    and checkpoints every 1,000; then a rerun to 2,500 that resumes at 2,000
+    from a state that restores bit for bit; then the step through the API."""
+    captured = {}
+    build = gan_train_for_shadow.build_step_fn
+
+    def capture(trainer, normal, shadow, index_stream, ratio, rate, rng):
+        captured.update(normal=normal, shadow=shadow, ratio=ratio)
+        return build(trainer, normal, shadow, index_stream, ratio, rate, rng)
+
+    base = work / "gan" / "run"
+    gan_train_for_shadow.build_step_fn = capture
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        start = time.perf_counter()
+        divergences, out = _run_quiet(gan_train_for_shadow.main, _gan_args(root, base, GAN_STEPS))
+        cli_seconds = time.perf_counter() - start
+        cli_peak = torch.cuda.max_memory_allocated()
+    finally:
+        gan_train_for_shadow.build_step_fn = build
+    (log_dir,) = [p for p in base.parent.iterdir() if p.is_dir()]
+
+    # the pairs: every shadowed pixel repeated lit // shadowed times, as many lit
+    loader = GRSS2013DataLoader(str(root))
+    shadow_map, _ = loader.load_shadow_map(0, None)
+    n_shadow = int((shadow_map == 1).sum())
+    n_pairs = n_shadow * ((shadow_map.size - n_shadow) // n_shadow)
+    for name in ("normal", "shadow"):
+        tensor = captured[name]
+        check(tensor.is_cuda and tuple(tensor.shape) == (n_pairs, 1, 1, GAN_BANDS),
+              f"GAN {name} pairs: {tuple(tensor.shape)} on {tensor.device}, expected "
+              f"({n_pairs}, 1, 1, {GAN_BANDS}) on the card")
+    losses = [(int(m.group(1)), float(m.group(2))) for m in
+              re.finditer(r"^step (\d+): generator_loss=(\S+) ", out, re.M)]
+    check([s for s, _ in losses] == [GAN_VALIDATION, GAN_STEPS]
+          and all(math.isfinite(v) for _, v in losses), f"GAN cadence losses: {losses}")
+    check(all(math.isfinite(d) for d in divergences), f"GAN divergences: {divergences}")
+    for name in ("shadowed", "deshadowed"):
+        points = json.loads((log_dir / f"best_ratio_{name}.json").read_text())
+        check(sorted(p[0] for p in points) == [GAN_VALIDATION, GAN_STEPS],
+              f"best_ratio_{name}.json: {points}")
+    for name in (f"ckpt_params_{GAN_VALIDATION}", f"ckpt_params_{GAN_STEPS}", "gan_params"):
+        check((log_dir / name / "params.pt").is_file(), f"no {name} snapshot")
+    check(checkpoint_steps(str(log_dir)) == [GAN_VALIDATION, GAN_STEPS],
+          f"GAN full states at {checkpoint_steps(str(log_dir))}")
+
+    # the state the rerun resumes from restores bit for bit
+    saved = restore_checkpoint(str(log_dir))
+    trainer = get_trainer_dict({}, GAN_BANDS, GAN_RESUME_STEPS)["cycle_gan"]
+    state = trainer.init_state(device)
+    state.restore(saved)
+    again = state.checkpoint()
+    same = (again["step"] == saved["step"] == GAN_STEPS
+            and all(torch.equal(again["state_dict"][k], v) for k, v in saved["state_dict"].items())
+            and all(again["opt_states"][n]["count"] == o["count"]
+                    and all(torch.equal(a, b) for a, b in zip(
+                        again["opt_states"][n]["m"] + again["opt_states"][n]["v"], o["m"] + o["v"]))
+                    for n, o in saved["opt_states"].items())
+            and all(again["pools"][n]["count"] == p["count"]
+                    and torch.equal(again["pools"][n]["buffer"], p["buffer"])
+                    and torch.equal(again["pools"][n]["inputs_buffer"], p["inputs_buffer"])
+                    for n, p in saved["pools"].items()))
+    check(same, "the restored GAN state differs from the saved one")
+    start = time.perf_counter()
+    _, out = _run_quiet(gan_train_for_shadow.main, _gan_args(root, base, GAN_RESUME_STEPS))
+    resume_seconds = time.perf_counter() - start
+    resumed = [line for line in out.splitlines() if line.startswith("Resuming")]
+    check(resumed == [f"Resuming GAN training from checkpoint at step {GAN_STEPS}"],
+          f"the GAN rerun did not resume at {GAN_STEPS}: {resumed}")
+    check(checkpoint_steps(str(log_dir)) == [GAN_STEPS, GAN_RESUME_STEPS],
+          f"GAN full states after the rerun at {checkpoint_steps(str(log_dir))}")
+
+    pairs = {"normal": captured["normal"], "shadow": captured["shadow"],
+             "ratio": captured["ratio"]}
+    _, state, step_fn = _gan_family_step_fn("cycle_gan", pairs, device,
+                                            3 * GAN_TIMED_STEPS + 60)
+    step = _gan_step_record(step_fn, state, 0, GAN_TIMED_STEPS)
+    emit({"phase": "gan_train", "pairs": n_pairs, "pair_bytes": 2 * n_pairs * GAN_BANDS * 4,
+          "batch": GAN_BATCH, "steps": GAN_STEPS, "cadence_losses": losses,
+          "divergences": divergences, "cli_seconds": cli_seconds, "cli_peak_device_bytes": cli_peak,
+          "resumed_line": resumed[0], "resume_cli_seconds": resume_seconds,
+          **{k: v for k, v in step.items() if k != "profile"}, "profile": step["profile"]})
+    return {"log_dir": log_dir, "pairs": pairs}
+
+
+def phase_gan_families(device, pairs: dict) -> dict:
+    """Each of the seven GAN families on the device pairs at batch 32: 200
+    steps with finite losses, the step's numbers, and 3 steps on the card
+    against the CPU from one init, on the same batches and pool draws; then
+    dcl_cycle_gan against dcl_gan, bit for bit under cuDNN's deterministic
+    algorithms."""
+    records = {}
+    for family in GAN_FAMILIES:
+        _, state, step_fn = _gan_family_step_fn(family, pairs, device,
+                                                GAN_FAMILY_STEPS + 3 * 10 + 3 * 5)
+        losses = torch.stack([step_fn(state, step) for step in range(GAN_FAMILY_STEPS)])
+        check(bool(torch.isfinite(losses).all()), f"{family}: non-finite losses")
+        step = _gan_step_record(step_fn, state, GAN_FAMILY_STEPS, 10, traced_steps=5)
+        records[family] = {"losses_at": {str(s): float(losses[s - 1]) for s in
+                                          (1, GAN_FAMILY_STEPS // 2, GAN_FAMILY_STEPS)},
+                           "card_vs_cpu": _gan_card_vs_cpu(family, pairs, device),
+                           **{k: v for k, v in step.items() if k != "profile"},
+                           "top": step["profile"]["top"]}
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        finals = {}
+        for family in ("dcl_gan", "dcl_cycle_gan"):
+            _, state, step_fn = _gan_family_step_fn(family, pairs, device, 20)
+            losses = [step_fn(state, step) for step in range(20)]
+            finals[family] = (torch.stack(losses), state.nets.state_dict())
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    (la, pa), (lb, pb) = finals["dcl_gan"], finals["dcl_cycle_gan"]
+    check(torch.equal(la, lb) and all(torch.equal(pb[k], v) for k, v in pa.items()),
+          "dcl_cycle_gan differs from dcl_gan")
+    emit({"phase": "gan_families", "batch": GAN_BATCH, "steps": GAN_FAMILY_STEPS,
+          "families": records, "dcl_cycle_gan_equals_dcl_gan": True})
+    return records
+
+
+def _gan_card_vs_cpu(family: str, pairs: dict, device) -> dict:
+    """3 steps from one init on the same batches and injected pool draws, on
+    the card and on the CPU; step 1 within 1e-4 (relative)."""
+    trainer = get_trainer_dict({}, GAN_BANDS, 3)[family]
+    weights = trainer.init_state("cpu", torch.Generator().manual_seed(SEED)).nets.state_dict()
+    gen = torch.Generator().manual_seed(SEED)
+    rows = [torch.randint(0, pairs["normal"].shape[0], (GAN_BATCH,), generator=gen)
+            for _ in range(3)]
+    batches = [(pairs["normal"][r.to(device)].cpu(), pairs["shadow"][r.to(device)].cpu())
+               for r in rows]
+    draws = [{name: (torch.randperm(50, generator=gen)[:GAN_BATCH],
+                     torch.rand(GAN_BATCH, generator=gen) < 0.5) for name in trainer.pool_names}
+             for _ in range(3)]
+    losses = {}
+    for name, where in (("card", device), ("cpu", torch.device("cpu"))):
+        state = trainer.init_state(where, state_dict=weights)
+        losses[name] = [float(trainer.train_step(state, x.to(where), y.to(where),
+                                                 draws=d)["generator_loss"])
+                        for (x, y), d in zip(batches, draws)]
+    rel = [abs(g - c) / max(abs(c), 1e-12) for g, c in zip(losses["card"], losses["cpu"])]
+    check(rel[0] < 1e-4, f"{family}: step 1 loss differs by {rel[0]} between card and CPU")
+    return {"losses": losses, "rel_diff": rel}
+
+
+def phase_gan_infer(device, work: Path, root: Path, log_dir: Path) -> None:
+    """``gan_infer_for_shadow`` on ``gan_params`` at its default 6,000 samples."""
+    start = time.perf_counter()
+    validator, _ = _run_quiet(gan_infer_for_shadow.main, [
+        "--device=cuda", "--loader_name=GRSS2013DataLoader", f"--path={root}",
+        f"--base_log_path={log_dir / 'gan_params'}", f"--output_path={work}"])
+    seconds = time.perf_counter() - start
+    divergences = {"mean": validator.get_best_mean_div(), "upper": validator.get_best_upper_div()}
+    check(all(len(v) == 2 and all(math.isfinite(d) for d in v) for v in divergences.values()),
+          f"gan_infer divergences: {divergences}")
+    emit({"phase": "gan_infer", "samples": 6000, "divergences": divergences,
+          "cli_seconds": seconds})
+
+
+def _translate_bound() -> dict:
+    """The scene translation's bound: the generator's seven SAME convolutions
+    (taps 144, 72, 36, 18, 36, 72, 144 over 144 outputs) a pixel, against the
+    pixels read and written once."""
+    taps = sum(max(GAN_BANDS // d, 1) for d in (1, 2, 4, 8, 4, 2, 1))
+    pixels = HEIGHT * WIDTH
+    flop = 2 * GAN_BANDS * taps * pixels
+    io_bytes = 2 * pixels * GAN_BANDS * 4
+    bound = max(flop / FP32_FLOP_PER_S, io_bytes / HBM_BYTES_PER_S)
+    return {"flop_per_pixel": 2 * GAN_BANDS * taps, "flop": flop, "io_bytes": io_bytes,
+            "bound_ms": bound * 1e3,
+            "bound_by": "operations" if flop / FP32_FLOP_PER_S > io_bytes / HBM_BYTES_PER_S
+            else "bytes"}
+
+
+def phase_gan_infer_image(device, work: Path, root: Path, log_dir: Path) -> None:
+    """``gan_infer_image_for_shadow``: shadow, deshadow, shadow with
+    ``--convert_all``, and the untranslated scene; then ``translate_scene``
+    timed with the conv and the Toeplitz generators."""
+    params = log_dir / "gan_params"
+    out_dir = work / "gan_image"
+    out_dir.mkdir()
+    loader = GRSS2013DataLoader(str(root))
+    scene = loader.load_data(0, True)
+    shadow_map, _ = loader.load_shadow_map(0, None)
+    images, seconds = {}, {}
+    for mode, convert_all in (("", False), ("shadow", False), ("deshadow", False),
+                              ("shadow", True)):
+        start = time.perf_counter()
+        path, _ = _run_quiet(gan_infer_image_for_shadow.main, [
+            "--device=cuda", "--loader_name=GRSS2013DataLoader", f"--path={root}",
+            f"--base_log_path={params}", f"--output_path={out_dir}",
+            f"--make_them_shadow={mode}", f"--convert_all={convert_all}"])
+        key = (mode or "none") + ("_all" if convert_all else "")
+        seconds[key] = time.perf_counter() - start
+        images[key] = imread(path)
+        check(images[key].shape == (HEIGHT, WIDTH, GAN_BANDS)
+              and images[key].dtype == scene.get_unnormalized_casi_dtype(),
+              f"{path}: {images[key].shape} {images[key].dtype}")
+    for key, side in (("shadow", 0), ("deshadow", 1)):
+        outside = shadow_map != side
+        check(np.array_equal(images[key][outside], images["none"][outside]),
+              f"{key}: pixels outside the mask differ from the untranslated output")
+        check(not np.array_equal(images[key][~outside], images["none"][~outside]),
+              f"{key}: nothing was translated")
+
+    # the card against the CPU port on 4,096 pixels, before un-normalizing
+    trainer = get_trainer_dict({}, GAN_BANDS, 1)["cycle_gan"]
+    rng = np.random.default_rng(SEED)
+    flat = scene.casi[:, :, :GAN_BANDS].reshape(-1, GAN_BANDS)
+    sample = torch.from_numpy(np.ascontiguousarray(
+        flat[rng.choice(flat.shape[0], TRANSLATE_CHECKS, replace=False)], dtype=np.float32)
+    ).view(-1, 1, 1, GAN_BANDS)
+    nets = {"cpu": trainer.restore_nets(str(params), "cpu"),
+            "conv": trainer.restore_nets(str(params), device)}
+    toeplitz = get_trainer_dict({"fused_generator": True}, GAN_BANDS, 1)["cycle_gan"]
+    nets["toeplitz"] = toeplitz.restore_nets(str(params), device)
+    errors = {}
+    for is_shadow in (True, False):
+        expected = trainer.translate(nets["cpu"], sample, is_shadow)
+        for impl, owner in (("conv", trainer), ("toeplitz", toeplitz)):
+            got = owner.translate(nets[impl], sample.to(device), is_shadow).cpu()
+            err = float((got - expected).abs().max())
+            check(err <= 1e-5, f"{impl} translation differs from the CPU's by {err}")
+            errors[f"{impl}_{'shadow' if is_shadow else 'deshadow'}"] = err
+    pixels = np.ascontiguousarray(scene.casi[:, :, :GAN_BANDS], dtype=np.float32)
+    timed = {}
+    for impl, owner in (("conv", trainer), ("toeplitz", toeplitz)):
+        runs = _timed_sweeps(lambda o=owner, n=nets[impl]: o.translate_scene(n, pixels, True))
+        timed[impl] = {"seconds": statistics.median(runs), "runs": runs}
+        # the device's own time: the blocks already on the card
+        blocks = torch.from_numpy(pixels.reshape(-1, 1, 1, GAN_BANDS)).to(device).split(65536)
+        device_runs = _timed_sweeps(lambda o=owner, n=nets[impl]: [o.translate(n, b, True)
+                                                                    for b in blocks])
+        timed[impl].update(device_seconds=statistics.median(device_runs),
+                           device_runs=device_runs)
+    emit({"phase": "gan_infer_image", "scene": [HEIGHT, WIDTH, GAN_BANDS],
+          "cli_seconds": seconds, "translate_abs_err_vs_cpu": errors, "checked": TRANSLATE_CHECKS,
+          "translate_scene": timed, **{f"translate_{k}": v for k, v in _translate_bound().items()}})
+
+
+def phase_gan_augmented(device, work: Path, root: Path, log_dir: Path) -> dict:
+    """The GAN's ``gan_params`` installed at GRSS2013's declared cycle_gan
+    path; the train CLI at HYPELCNN's full width, batch 48, with cycle_gan
+    shadow augmentation at threshold 0.3 for 200 steps, then 50 with
+    ``simple``; the share of windows shadowed, the gather's launches, a
+    falling loss and test OA; the step with and without the shadow op."""
+    loader = GRSS2013DataLoader(str(root))
+    target = Path(loader.get_model_base_dir()) / loader.get_shadow_checkpoints()["cycle_gan"]
+    shutil.copytree(log_dir / "gan_params", target)
+    data, read = _read("GRSS2013DataLoader", root, LOADER_TRAIN_RATIO, LOADER_TEST_RATIO, device,
+                       [])
+    runs = {}
+    for method, steps in (("cycle_gan", GAN_AUGMENTED_STEPS), ("simple", SIMPLE_AUGMENTED_STEPS)):
+        args = ["--device=cuda", "--loader_name=GRSS2013DataLoader", f"--path={root}",
+                "--model_name=HYPELCNNModel", "--importer_name=GeneratorImporter",
+                f"--neighborhood={NEIGHBORHOOD}", f"--algorithm_param_path={PARAMS_PATH}",
+                f"--batch_size={LOADER_BATCH}", f"--train_ratio={LOADER_TRAIN_RATIO}",
+                f"--test_ratio={LOADER_TEST_RATIO}", f"--step={steps}",
+                f"--save_checkpoint_steps={steps}", f"--augment_data_with_shadow={method}",
+                f"--augmentation_random_threshold={SHADOW_THRESHOLD}",
+                f"--base_log_path={work / ('augmented_' + method)}"]
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        start = time.perf_counter()
+        result, _ = _run_train_cli(args)
+        cli_seconds = time.perf_counter() - start
+        by_batch = _note_main_path()
+        launches = window_gather_cuda.launches
+        (run_dir,) = [p for p in (work / ("augmented_" + method)).iterdir() if p.is_dir()]
+        losses = _logged_losses(run_dir)
+        check(len(losses) >= 1 and all(math.isfinite(v) for _, v in losses),
+              f"{method} augmentation: losses {losses}")
+        runs[method] = {"result": result, "by_batch": by_batch, "losses": losses,
+                        "cli_seconds": cli_seconds, "steps": steps,
+                        "cli_peak_device_bytes": torch.cuda.max_memory_allocated(),
+                        **_check_launches(f"{method} augmentation", by_batch, launches,
+                                          read["targets"], steps, LOADER_BATCH)}
+    gan = runs["cycle_gan"]
+    check(gan["result"].test_accuracy >= 0.9,
+          f"GAN-augmented test OA {gan['result'].test_accuracy}")
+
+    # the trainer the CLI built, with its shadow op: the windows each step
+    # shadowed (those the op changed), the first step's loss, step times
+    creators = build_shadow_creators(data.loader, data.scene, NEIGHBORHOOD, device)
+    check(sorted(creators) == ["cycle_gan", "simple"], f"shadow creators: {sorted(creators)}")
+    info = AugmentationInfo(shadow_struct=creators["cycle_gan"], perform_shadow_augmentation=True,
+                            augmentation_random_threshold=SHADOW_THRESHOLD)
+    trainer = _trainer(data, _loader_params(), device, info)
+    state = trainer.init_state()
+    tables = trainer.training_tables(GAN_AUGMENTED_STEPS, LOADER_BATCH)
+    first_loss = float(trainer.train_step(state, tables, 0))
+    check(gan["losses"][-1][1] < first_loss,
+          f"GAN augmentation: the loss did not fall from {first_loss}: {gan['losses']}")
+    source = data.sources["training"]
+    arrays = source.device_arrays(device)
+    shadowed = 0
+    with torch.no_grad():
+        for step in range(GAN_AUGMENTED_STEPS):
+            idx = tables.indices[step]
+            patches = source.gather(arrays, idx, tables.coords.index_select(0, idx))
+            augmented = augment_batch(patches, info, trainer.rng_pool.generator("augment", step,
+                                                                                device))
+            shadowed += int((augmented != patches).flatten(1).any(1).sum())
+    share = shadowed / (GAN_AUGMENTED_STEPS * LOADER_BATCH)
+    check(0.25 <= share <= 0.35, f"{share} of the windows were shadowed")
+    timed = {}
+    for name, augmentation in (("plain", None), ("gan_shadow", info)):
+        stepper = _trainer(data, _loader_params(), device, augmentation)
+        s = stepper.init_state()
+        t = stepper.training_tables(10 + 3 * 30, LOADER_BATCH)
+        _timed_steps(stepper, s, t, 0, 10)
+        step_runs = [_timed_steps(stepper, s, t, 10 + 30 * i, 30) / 30 for i in range(3)]
+        timed[name] = {"step_seconds": statistics.median(step_runs), "step_runs": step_runs}
+    emit({"phase": "gan_augmented", "threshold": SHADOW_THRESHOLD, "shadowed_share": share,
+          "windows": GAN_AUGMENTED_STEPS * LOADER_BATCH, "first_loss": first_loss,
+          "installed_at": str(target.relative_to(root)), "step": timed,
+          **{method: {"steps": r["steps"], "logged_losses": r["losses"],
+                      "test_oa": r["result"].test_accuracy,
+                      "gather_launches_by_batch": {str(b): n for b, n in
+                                                   sorted(r["by_batch"].items())},
+                      "gather_launches": r["gather_launches"], "cli_seconds": r["cli_seconds"],
+                      "cli_peak_device_bytes": r["cli_peak_device_bytes"]}
+             for method, r in runs.items()}})
+    return {"launches": sum(r["by_batch"].get(LOADER_BATCH, 0) for r in runs.values())}
+
+
 def _event_times(fn, inputs) -> list:
     """Per-call device time in ms, from CUDA events around each call. A
     sleep kernel first holds the stream until every call is queued behind
@@ -1211,17 +1652,20 @@ def _bands(device, count: int = 20) -> list:
                      alpha=min(i * BATCH_ROWS, HEIGHT - BATCH_ROWS)) for i in range(count)]
 
 
-def phase_kernels(device, scene, launches: int, train, families: dict, loaders: dict) -> None:
+def phase_kernels(device, scene, launches: int, train, families: dict, loaders: dict,
+                  augmented_launches: int) -> None:
     """Kernel rows; ``launches`` are the sweep's, ``train["launches"]`` the
     train CLI run's, split by batch size; ``families`` the family phases'
     results, with their launches by batch size; ``loaders`` the GULFPORT and
-    AVON phases', whose train CLI runs launch at C = 65 and C = 360."""
+    AVON phases', whose train CLI runs launch at C = 65 and C = 360;
+    ``augmented_launches`` the GAN-augmented train CLI runs' steps'."""
     scene_dev = scene.device_scene(device)
     rows = [_gather_row(scene_dev, _bands(device), launches)]
     # the training path's shapes: the step's batch and the eval drain's
     tables, train_launches = train["tables"], train["launches"]
-    rows.append(_gather_row(scene_dev, _training_batches(tables, 0, 21), train_launches["steps"],
-                            " (training step)"))
+    rows.append(_gather_row(scene_dev, _training_batches(tables, 0, 21),
+                            train_launches["steps"] + augmented_launches,
+                            " (training step; with the GAN-augmented steps)"))
     train_coords = tables.coords
     gen = torch.Generator(device=device).manual_seed(SEED)
     eval_batches = [train_coords.index_select(0, torch.randperm(
@@ -1352,13 +1796,22 @@ def main() -> int:
         timed("infer_trained", phase_infer_trained, device, Path(work), train)
         for family in FAMILIES:
             families[family.phase] = timed(family.phase, phase_family, device, Path(work), family)
-        timed("loader_grss2013", phase_loader_grss2013, device, Path(work))
+        grss2013 = timed("loader_grss2013", phase_loader_grss2013, device, Path(work))
         timed("loader_grss2018", phase_loader_grss2018, device, Path(work))
         loaders = {"loader_gulfport": timed("loader_gulfport", phase_loader_gulfport, device,
                                             Path(work)),
                    "loader_avon": timed("loader_avon", phase_loader_avon, device, Path(work))}
+        root = grss2013["root"]
+        gan = timed("gan_train", phase_gan_train, device, Path(work), root)
+        timed("gan_families", phase_gan_families, device, gan["pairs"])
+        del gan["pairs"]
+        timed("gan_infer", phase_gan_infer, device, Path(work), root, gan["log_dir"])
+        timed("gan_infer_image", phase_gan_infer_image, device, Path(work), root, gan["log_dir"])
+        augmented = timed("gan_augmented", phase_gan_augmented, device, Path(work), root,
+                          gan["log_dir"])
     timed("fused_levels", phase_fused_levels, device, scene, families["family_dualcnn"])
-    timed("kernels", phase_kernels, device, scene, launches, train, families, loaders)
+    timed("kernels", phase_kernels, device, scene, launches, train, families, loaders,
+          augmented["launches"])
     timed("profile", phase_profile, device, scene, module)
     timed("profile_train", phase_profile_train, train)
     torch.cuda.synchronize()

@@ -16,8 +16,12 @@ log dir that already holds a checkpoint is resumed from: at or past
 ``--step`` nothing trains, the printed loss is ``nan`` and the accuracies are
 those of the restored model.
 
-Not ported yet: ``--augment_data_with_shadow`` (the GAN stack, ROADMAP.md A12)
-and ``--flag_config_file_opt`` (hyperparameter search, A14).
+``--augment_data_with_shadow simple|<gan type>`` shadows a share
+(``--augmentation_random_threshold``) of each batch's windows: by the
+loader's band ratio, or through the frozen generator that
+``gan_train_for_shadow`` trained, installed at the path the loader declares
+(``get_shadow_checkpoints``). Not ported yet: ``--flag_config_file_opt``
+(hyperparameter search, ROADMAP.md A14).
 """
 
 from __future__ import annotations
@@ -42,6 +46,7 @@ from hypelcnn_tpu_torch.core.platform import resolve_device
 from hypelcnn_tpu_torch.core.registry import get_importer_from_name, get_model_from_name
 from hypelcnn_tpu_torch.core.rng import set_run_seed
 from hypelcnn_tpu_torch.data.augmentation import AugmentationInfo
+from hypelcnn_tpu_torch.gan.shadow_ops import build_shadow_creators
 from hypelcnn_tpu_torch.train.trainer import ClassificationTrainer, TrainingResult
 from hypelcnn_tpu_torch.utils.text import path_leaf, replace_abbrs
 
@@ -98,9 +103,6 @@ def get_log_suffix(flags) -> str:
 def perform_an_episode(flags, algorithm_params, model, base_log_path, device) -> TrainingResult:
     """One training episode on ``device``."""
     print("Args:", json.dumps(vars(flags), indent=3))
-    if flags.augment_data_with_shadow is not None:
-        raise NotImplementedError("--augment_data_with_shadow needs the GAN stack, which is "
-                                  "not ported yet (ROADMAP.md A12)")
     set_run_seed()
 
     data_importer = get_importer_from_name(flags.importer_name)
@@ -108,10 +110,21 @@ def perform_an_episode(flags, algorithm_params, model, base_log_path, device) ->
                                        flags.train_ratio, flags.test_ratio,
                                        flags.neighborhood)
 
+    shadow_struct = None
+    if flags.augment_data_with_shadow is not None:
+        shadow_dict = build_shadow_creators(data.loader, data.scene, flags.neighborhood, device)
+        if flags.augment_data_with_shadow not in shadow_dict:
+            raise KeyError(f"unknown shadow method {flags.augment_data_with_shadow!r}; "
+                           f"available: {sorted(shadow_dict)}")
+        shadow_struct = shadow_dict[flags.augment_data_with_shadow]
+
     augmentation_info = AugmentationInfo(
+        shadow_struct=shadow_struct,
+        perform_shadow_augmentation=flags.augment_data_with_shadow is not None,
         perform_rotation_augmentation=flags.augment_data_with_rotation,
         perform_reflection_augmentation=flags.augment_data_with_reflection,
-        perform_spectral_augmentation=flags.augment_data_with_spectral or 0.0)
+        perform_spectral_augmentation=flags.augment_data_with_spectral or 0.0,
+        augmentation_random_threshold=flags.augmentation_random_threshold)
 
     batch_size = algorithm_params["batch_size"]
     n_train = data.sample_set.training_targets.shape[0]

@@ -5,9 +5,12 @@ dicts of numpy arrays (``np.asarray`` of each leaf); this module imports
 neither jax nor flax. The port's layers keep the flax submodule names, so a
 variable path maps to a ``state_dict`` key by name:
 
-- ``.../Conv_0/kernel`` (HWIO) -> ``....Conv_0.weight`` (OIHW);
-- ``.../Dense_0/kernel`` (``[in, out]``) -> ``....Dense_0.weight`` (``[out, in]``);
-- ``.../Conv_0/bias``, ``.../Dense_0/bias`` -> ``....bias``;
+- ``.../Conv_0/kernel`` (HWIO) -> ``....Conv_0.weight`` (OIHW), and a 1-D
+  conv kernel (``[k, in, out]``) -> ``[out, in, k]``: ``Conv_0`` and the GAN
+  networks' ``net1`` .. ``net7`` and ``conv``;
+- ``.../Dense_0/kernel`` (``[in, out]``) -> ``....Dense_0.weight`` (``[out, in]``),
+  and so the GAN networks' ``fc1`` .. ``fc3`` and ``p{i}_fc1`` .. ``p{i}_fc4``;
+- the ``bias`` of each of those layers -> ``....bias``;
 - ``.../BatchNorm_0/bias`` (params), ``.../BatchNorm_0/mean|var``
   (batch_stats) -> ``....BatchNorm_0.bias|mean|var``;
 - a fused multi-scale level's ``..._fused/conv{k}x{k}_kernel`` (HWIO) ->
@@ -27,14 +30,13 @@ import torch
 
 _RULES = {
     # (collection, layer, leaf) -> (torch leaf, transpose)
-    ("params", "Conv_0", "kernel"): ("weight", (3, 2, 0, 1)),
-    ("params", "Dense_0", "kernel"): ("weight", (1, 0)),
-    ("params", "Conv_0", "bias"): ("bias", None),
-    ("params", "Dense_0", "bias"): ("bias", None),
     ("params", "BatchNorm_0", "bias"): ("bias", None),
     ("batch_stats", "BatchNorm_0", "mean"): ("mean", None),
     ("batch_stats", "BatchNorm_0", "var"): ("var", None),
 }
+_CONV_LAYER = re.compile(r"Conv_0|net[1-7]|conv")
+_DENSE_LAYER = re.compile(r"Dense_0|fc[1-3]|p\d+_fc[1-4]")
+_CONV_TRANSPOSE = {4: (3, 2, 0, 1), 3: (2, 1, 0)}  # by the kernel's rank
 _TOP_LEVEL_RULES = {
     ("params", "digitcaps_w"): ("digitcaps_w", None),
     ("params", "digitcaps_b"): ("digitcaps_b", None),
@@ -42,14 +44,20 @@ _TOP_LEVEL_RULES = {
 _FUSED_LEAF = re.compile(r"conv\d+x\d+_(kernel|bias)")
 
 
-def _rule(collection: str, path: Tuple[str, ...]):
-    """(torch leaf, transpose) for a flax leaf path, or ``None``."""
+def _rule(collection: str, path: Tuple[str, ...], ndim: int):
+    """(torch leaf, transpose) for a flax leaf path of rank ``ndim``, or ``None``."""
     if len(path) == 1:
         return _TOP_LEVEL_RULES.get((collection, path[0]))
     layer, leaf = path[-2:]
     match = _FUSED_LEAF.fullmatch(leaf)
     if collection == "params" and layer.endswith("_fused") and match:
         return leaf, (3, 2, 0, 1) if match.group(1) == "kernel" else None
+    for pattern, kernel_transpose in ((_CONV_LAYER, _CONV_TRANSPOSE.get(ndim, (3, 2, 0, 1))),
+                                      (_DENSE_LAYER, (1, 0))):
+        if collection == "params" and pattern.fullmatch(layer):
+            if leaf == "kernel":
+                return "weight", kernel_transpose
+            return ("bias", None) if leaf == "bias" else None
     return _RULES.get((collection, layer, leaf))
 
 
@@ -68,7 +76,7 @@ def variables_to_state_dict(params: Mapping, batch_stats: Optional[Mapping] = No
     state: Dict[str, torch.Tensor] = {}
     for collection, tree in (("params", params), ("batch_stats", batch_stats or {})):
         for path, leaf in _leaves(tree):
-            rule = _rule(collection, path)
+            rule = _rule(collection, path, np.ndim(leaf))
             if rule is None:
                 raise KeyError(f"no mapping for flax {collection} leaf {'/'.join(path)}")
             name, transpose = rule

@@ -1,12 +1,13 @@
 """CLI flag groups, with the names and defaults of ``hypelcnn_tpu/core/config.py``.
 
-The groups of the train and infer CLIs, plus ``--device``.
+The groups of the train, infer and GAN CLIs, plus ``--device``.
 """
 
 from __future__ import annotations
 
 import json
 import os
+from types import SimpleNamespace
 from typing import Any
 
 
@@ -20,6 +21,22 @@ def type_ensure_strtobool(val: Any) -> bool:
     if sval in falsy:
         return False
     raise ValueError(f"invalid truth value {val!r}")
+
+
+def add_parse_cmds_for_json_loader(parser) -> None:
+    parser.add_argument("--flag_config_file", nargs="?", type=str, default=None,
+                        help="Flags as json")
+
+
+def merge_flag_config_json(flags: SimpleNamespace, config_path: str | None) -> SimpleNamespace:
+    """The flags with a JSON file's keys and values laid over them."""
+    if not config_path:
+        return flags
+    with open(config_path, "r", encoding="utf-8") as fid:
+        overrides = json.load(fid)
+    merged = vars(flags).copy()
+    merged.update(overrides)
+    return SimpleNamespace(**merged)
 
 
 def add_parse_cmds_for_trainers(parser) -> None:

@@ -2,38 +2,45 @@
 
 Each op works on a ``[B, k, k, C]`` NHWC batch, with one random draw per
 example, and takes its draws either from a ``torch.Generator`` or injected
-(``k``, ``flips``, ``deltas``), so that a test can feed both frameworks the
-same numbers. Kept as in the JAX package:
+(``k``, ``u``, ``flips``, ``deltas``), so that a test can feed both
+frameworks the same numbers. Kept as in the JAX package:
 
 - the order rotation -> shadow -> reflection -> spectral;
 - rotation turns by 0, 90 or 180 degrees, never 270;
+- the shadow op (a :class:`ShadowOps` from ``gan/shadow_ops.py``: the
+  simple ratio or a frozen generator) replaces an example where its draw
+  ``u`` is below ``augmentation_random_threshold``;
 - reflection draws left-right first, then up-down;
 - spectral deltas are negative only, uniform in ``[-amount, 0)``, one per
   example and channel.
 
-Shadow augmentation needs the GAN stack, which is not ported yet.
+An op that is off draws nothing, so the draws of the others do not depend
+on it.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
 
 @dataclass
+class ShadowOps:
+    """A pair of batch translations, shadow and de-shadow."""
+    shadow_fn: Callable[[torch.Tensor], torch.Tensor]
+    deshadow_fn: Optional[Callable[[torch.Tensor], torch.Tensor]] = None
+
+
+@dataclass
 class AugmentationInfo:
+    shadow_struct: Optional[ShadowOps] = None
     perform_shadow_augmentation: bool = False
     perform_rotation_augmentation: bool = False
     perform_spectral_augmentation: float = 0.0  # 0 disables; else max negative delta
     perform_reflection_augmentation: bool = False
-
-
-def _require_shadow_unset(info: AugmentationInfo) -> None:
-    if info.perform_shadow_augmentation:
-        raise NotImplementedError("shadow augmentation needs the GAN stack, which is not "
-                                  "ported yet (ROADMAP.md A12)")
+    augmentation_random_threshold: float = 0.5
 
 
 def rotate_batch(patches: torch.Tensor, generator: Optional[torch.Generator] = None,
@@ -61,6 +68,17 @@ def reflect_batch(patches: torch.Tensor, generator: Optional[torch.Generator] = 
     return torch.where(flip_ud.to(patches.device).view(-1, 1, 1, 1), patches.flip(1), patches)
 
 
+def shadow_batch(patches: torch.Tensor, shadow_fn, threshold: float,
+                 generator: Optional[torch.Generator] = None,
+                 u: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``shadow_fn(patches)`` where an example's draw ``u`` (uniform in
+    ``[0, 1)``, ``[B]``) is below ``threshold``, the example as it is elsewhere."""
+    if u is None:
+        u = torch.rand((patches.shape[0],), generator=generator, device=patches.device)
+    shadowed = shadow_fn(patches)
+    return torch.where(u.to(patches.device).view(-1, 1, 1, 1) < threshold, shadowed, patches)
+
+
 def spectral_batch(patches: torch.Tensor, amount: float,
                    generator: Optional[torch.Generator] = None,
                    deltas: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -78,14 +96,17 @@ def augment_batch(patches: torch.Tensor, info: AugmentationInfo,
                   draws: Optional[Dict[str, Any]] = None) -> torch.Tensor:
     """Apply the enabled augmentations in the JAX package's order.
 
-    Draws come from ``generator`` (rotation, then reflection, then spectral)
-    unless ``draws`` injects them under the keys ``k``, ``flips`` and
-    ``deltas``.
+    Draws come from ``generator`` (rotation, then shadow, then reflection,
+    then spectral) unless ``draws`` injects them under the keys ``k``,
+    ``u``, ``flips`` and ``deltas``. Shadow augmentation runs only with a
+    ``shadow_struct``.
     """
-    _require_shadow_unset(info)
     draws = draws or {}
     if info.perform_rotation_augmentation:
         patches = rotate_batch(patches, generator, k=draws.get("k"))
+    if info.perform_shadow_augmentation and info.shadow_struct is not None:
+        patches = shadow_batch(patches, info.shadow_struct.shadow_fn,
+                               info.augmentation_random_threshold, generator, u=draws.get("u"))
     if info.perform_reflection_augmentation:
         patches = reflect_batch(patches, generator, flips=draws.get("flips"))
     if info.perform_spectral_augmentation:

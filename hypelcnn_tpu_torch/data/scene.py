@@ -5,7 +5,9 @@ numpy code, so they are bit for bit the JAX ones.
 
 - :class:`Scene` symmetric-pads CASI and LiDAR by the neighborhood and
   min/max-normalizes CASI per band and LiDAR as a whole (statistics may be
-  injected, so a shadowed variant keeps the original's range).
+  injected, so a shadowed variant keeps the original's range). It carries
+  the shadow augmenters it is given (``shadow_creator_dict``), as the JAX
+  package's does.
   :meth:`Scene.device_scene` fuses them into one contiguous NHWC float32
   ``[Hp, Wp, C + 1]`` tensor, from which the CUDA window gather cuts windows.
 - :class:`DualResScene` (GRSS2018) holds CASI at half the LiDAR's resolution;
@@ -35,8 +37,10 @@ class Scene:
 
     def __init__(self, casi: Optional[np.ndarray], lidar: Optional[np.ndarray],
                  neighborhood: int, normalize: bool,
-                 casi_min=None, casi_max=None, lidar_min=None, lidar_max=None) -> None:
+                 casi_min=None, casi_max=None, lidar_min=None, lidar_max=None,
+                 shadow_creator_dict=None) -> None:
         self.neighborhood = neighborhood
+        self.shadow_creator_dict = shadow_creator_dict
         self.casi_unnormalized_dtype = None if casi is None else casi.dtype
 
         pad = ((neighborhood, neighborhood), (neighborhood, neighborhood), (0, 0))

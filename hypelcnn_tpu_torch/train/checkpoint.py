@@ -5,7 +5,13 @@ The directory layout is the JAX package's orbax manager's
 ``torch.save`` file of ``{"step", "state_dict"}``, plus ``"optimizer"``
 when the trainer saved it. At most ``MAX_TO_KEEP``
 steps are kept, the oldest pruned first. Everything is saved from the CPU
-and loads under ``weights_only=True``.
+and loads under ``weights_only=True``. A GAN run saves its whole state
+there too (networks, every optimizer's count and moments, the pools).
+
+A params-only snapshot (a trained GAN's networks, for translation or as a
+frozen shadow augmenter) is a directory holding one ``params.pt``, at the
+JAX package's paths (``<log_dir>/ckpt_params_N``, ``<log_dir>/gan_params``):
+loaders declare those paths, and they are found with ``os.path.isdir``.
 """
 
 from __future__ import annotations
@@ -17,6 +23,7 @@ from typing import Any, Dict, List, Optional
 import torch
 
 CHECKPOINT_FILE = "state.pt"
+PARAMS_FILE = "params.pt"
 MAX_TO_KEEP = 20
 
 
@@ -55,3 +62,17 @@ def restore_checkpoint(log_dir: str) -> Optional[dict]:
         return None
     path = os.path.join(_checkpoint_dir(log_dir), str(steps[-1]), CHECKPOINT_FILE)
     return torch.load(path, map_location="cpu", weights_only=True)
+
+
+def save_params(path: str, state_dict: Dict[str, torch.Tensor]) -> str:
+    """Write ``state_dict`` (moved to the CPU) as the snapshot directory
+    ``path``, replacing one that is there; returns the file path."""
+    os.makedirs(path, exist_ok=True)
+    file_path = os.path.join(path, PARAMS_FILE)
+    torch.save({key: value.detach().cpu() for key, value in state_dict.items()}, file_path)
+    return file_path
+
+
+def restore_params(path: str) -> Dict[str, torch.Tensor]:
+    """The ``state_dict`` of the snapshot directory ``path``."""
+    return torch.load(os.path.join(path, PARAMS_FILE), map_location="cpu", weights_only=True)

@@ -1,8 +1,9 @@
 """The PyTorch port stands alone: nothing in it, nor in ``chip_smoke.py`` or
 the port's scripts (``scripts/torch_*.py``), imports jax, flax, optax, orbax,
 scikit-learn, the JAX package, or the image libraries the JAX package reads
-through (PIL, imageio, tifffile), none of which the card's machine has; and
-its CLIs run on CUDA unless asked for the CPU."""
+through (PIL, imageio, tifffile), none of which the card's machine has;
+matplotlib (which it lacks too) is imported only inside the function that
+draws a plot; and its CLIs run on CUDA unless asked for the CPU."""
 
 import ast
 import pathlib
@@ -47,12 +48,26 @@ def test_no_forbidden_imports():
     assert {k: v for k, v in offenders.items() if v} == {}
 
 
+def test_no_module_level_matplotlib_import():
+    offenders = []
+    for path in _port_files():
+        tree = ast.parse(path.read_text(), filename=str(path))
+        for node in tree.body:
+            names = ([alias.name for alias in node.names] if isinstance(node, ast.Import)
+                     else [node.module or ""] if isinstance(node, ast.ImportFrom) else [])
+            if any(name.split(".")[0] == "matplotlib" for name in names):
+                offenders.append(str(path.relative_to(ROOT)))
+    assert offenders == []
+
+
 def test_importing_every_module_loads_no_jax():
     modules = list(_module_names())
+    assert "hypelcnn_tpu_torch.gan.wrappers.dclgan" in modules
+    unwanted = sorted(FORBIDDEN | {"matplotlib"})
     code = ("import importlib, sys\n"
             f"for name in {modules!r}:\n"
             "    importlib.import_module(name)\n"
-            f"loaded = sorted(m for m in sys.modules if m.split('.')[0] in {sorted(FORBIDDEN)!r})\n"
+            f"loaded = sorted(m for m in sys.modules if m.split('.')[0] in {unwanted!r})\n"
             "print(len(sys.modules), loaded)\n"
             "sys.exit(1 if loaded else 0)\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
@@ -78,4 +93,19 @@ def test_train_cli_without_device_refuses_to_run_without_cuda(monkeypatch, tmp_p
             "--loader_name=SyntheticDataLoader", "--path=synthetic://?h=8&w=8&bands=3",
             "--importer_name=GeneratorImporter", "--neighborhood=1", "--step=2",
             f"--base_log_path={tmp_path}", f"--output_path={tmp_path}"])
+    assert not any(tmp_path.iterdir())
+
+
+@pytest.mark.parametrize("app, args", [
+    ("gan_train_for_shadow", ["--step=2"]),
+    ("gan_infer_for_shadow", []),
+    ("gan_infer_image_for_shadow", ["--make_them_shadow=shadow"]),
+])
+def test_gan_clis_without_device_refuse_to_run_without_cuda(monkeypatch, tmp_path, app, args):
+    import importlib
+    main = importlib.import_module(f"hypelcnn_tpu_torch.apps.{app}").main
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        main(["--loader_name=SyntheticDataLoader", "--path=synthetic://?h=8&w=8&bands=3",
+              f"--base_log_path={tmp_path / 'run'}", f"--output_path={tmp_path}", *args])
     assert not any(tmp_path.iterdir())

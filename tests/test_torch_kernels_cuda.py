@@ -13,7 +13,10 @@ import torch
 
 from hypelcnn_tpu_torch.core.platform import resolve_device
 from hypelcnn_tpu_torch.core.registry import get_importer_from_name, get_model_from_name
+from hypelcnn_tpu_torch.data.augmentation import AugmentationInfo
 from hypelcnn_tpu_torch.data.loaders.synthetic import SyntheticDataLoader
+from hypelcnn_tpu_torch.gan.shadow_ops import create_gan_shadow_struct
+from hypelcnn_tpu_torch.gan.wrapper_registry import get_trainer_dict
 from hypelcnn_tpu_torch.infer.scene_inference import predict_full_scene
 from hypelcnn_tpu_torch.kernels import build
 from hypelcnn_tpu_torch.kernels.window_gather import reset_launches, window_gather_cuda
@@ -170,3 +173,55 @@ def test_full_scene_sweep_goes_through_the_kernel(cuda):
     expected = predict_full_scene(module, scene, batch_rows=20, device=cuda,
                                   gather=gather_patches_torch)
     np.testing.assert_array_equal(got, expected)
+
+
+GAN_FAMILIES = ["cycle_gan", "gan_x2y", "gan_y2x", "cut_x2y", "cut_y2x", "dcl_gan", "dcl_cycle_gan"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", GAN_FAMILIES)
+def test_gan_step_on_the_card_matches_the_cpu(cuda, family):
+    """One step of each GAN family from the same weights on the same pairs:
+    losses within 1e-4 (relative) of the CPU's, parameters finite."""
+    bands = 16
+    trainer = get_trainer_dict({"patches": 3}, bands, 10)[family]
+    weights = trainer.init_state("cpu", torch.Generator().manual_seed(0)).nets.state_dict()
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.uniform(0.2, 1.0, (32, 1, 1, bands)).astype(np.float32))
+    y = x * 0.5
+    losses = {}
+    for where in (cuda, torch.device("cpu")):
+        state = trainer.init_state(where, state_dict=weights)
+        metrics = trainer.train_step(state, x.to(where), y.to(where))
+        losses[where.type] = {k: float(v) for k, v in metrics.items()}
+        assert all(bool(torch.isfinite(p).all()) for p in state.nets.parameters())
+    for name, value in losses["cpu"].items():
+        assert losses["cuda"][name] == pytest.approx(value, rel=1e-4, abs=1e-6), name
+
+
+@pytest.mark.cuda
+def test_gan_augmented_step_launches_the_gather_once(cuda):
+    """A classifier step with a frozen generator shadowing half the windows:
+    one gather launch, a finite loss."""
+    np.random.seed(0)
+    data = get_importer_from_name("GeneratorImporter").read_data_set(
+        "SyntheticDataLoader", "synthetic://?h=48&w=64&bands=12&classes=5&seed=3",
+        train_ratio=0.5, test_ratio=0.1, neighborhood=1)
+    gan = get_trainer_dict({}, 12, 10)["cycle_gan"]
+    nets = gan.init_state(cuda, torch.Generator().manual_seed(0)).nets.requires_grad_(False)
+    draws = torch.Generator().manual_seed(1)
+    for p in nets.parameters():
+        p.copy_(0.05 * torch.randn(p.shape, generator=draws).to(cuda))
+    info = AugmentationInfo(shadow_struct=create_gan_shadow_struct(gan, nets, 12),
+                            perform_shadow_augmentation=True, augmentation_random_threshold=0.5)
+    params = {**HYPELCNNModel().default_params(), "filter_count": 32}
+    trainer = ClassificationTrainer(
+        model=HYPELCNNModel(), class_count=data.class_count, algorithm_params=params,
+        scene=data.scene, sample_set=data.sample_set, sources=data.sources,
+        data_shape=data.data_shape, augmentation_info=info, device=cuda)
+    state = trainer.init_state()
+    tables = trainer.training_tables(2, 16)
+    reset_launches()
+    loss = trainer.train_step(state, tables, 0)
+    assert window_gather_cuda.launches == 1 and window_gather_cuda.launches_by_batch[16] == 1
+    assert np.isfinite(float(loss))

@@ -231,6 +231,12 @@ def test_generator_draws_have_the_jax_distribution():
 
 
 def test_shadow_augmentation_is_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="A12"):
-        aug.augment_batch(torch.zeros(2, 3, 3, 4),
-                          aug.AugmentationInfo(perform_shadow_augmentation=True))
+    """Shadow augmentation is ported now (tests/test_torch_gan_augment.py);
+    without a shadow op it does nothing, as in the JAX package."""
+    x = torch.from_numpy(_patches(5, batch=4, k=3, channels=4))
+    info = dict(perform_shadow_augmentation=True)
+    expected = np.asarray(jax_aug.augment_batch(jnp.asarray(x.numpy()), jax.random.PRNGKey(0),
+                                                jax_aug.AugmentationInfo(**info)))
+    got = aug.augment_batch(x, aug.AugmentationInfo(**info), generator=torch.Generator())
+    np.testing.assert_array_equal(got.numpy(), expected)
+    assert torch.equal(got, x)
