@@ -37,7 +37,7 @@ without them. Phases, one JSON line each:
    library call and its bound.
 10. ``profile``: device time by kernel over one traced sweep, and the
     device's idle share.
-11. ``profile_train``: the same over 50 traced training steps.
+11. ``profile_train``: the same over 25 traced training steps.
 
 Between 8 and 9, each other classifier family at the full width of its
 published JSON, on the same scene (``family_concnn``: k = 5, batch 10;
@@ -93,15 +93,15 @@ Then the five GAN phases, on the GRSS2013 layout ``loader_grss2013`` wrote
 (349 x 1905, 144 CASI bands):
 
 - ``gan_train``: ``gan_train_for_shadow`` (cycle_gan, random pairing, batch
-  32) for 2,000 steps, validation and checkpoints every 1,000: both pair
+  32) for 500 steps, validation and checkpoints every 250: both pair
   arrays on the card at the size the shadow map implies, a finite generator
   loss at each cadence, 2 points in each ``best_ratio_*.json``,
-  ``ckpt_params_1000``, ``ckpt_params_2000``, ``gan_params`` and 2 full
-  states; the saved state restores bit for bit and a rerun to 2,500 resumes
-  at 2,000. Then the step through the API (median of 3 runs of 100 steps),
+  ``ckpt_params_250``, ``ckpt_params_500``, ``gan_params`` and 2 full
+  states; the saved state restores bit for bit and a rerun to 625 resumes
+  at 500. Then the step through the API (median of 3 runs of 50 steps),
   its launches and idle share over 20 traced steps, the CLI's seconds and
   peak memory;
-- ``gan_families``: each of the seven families for 200 steps with finite
+- ``gan_families``: each of the seven families for 30 steps with finite
   losses, its step (median of 3 runs of 10), launches and idle share over 5
   traced steps, and 3
   steps card against CPU from one init on the same batches and pool draws
@@ -121,12 +121,36 @@ Then the five GAN phases, on the GRSS2013 layout ``loader_grss2013`` wrote
   windows shadowed, a loss below the first step's, test OA at least 0.9, and
   the step with and without the shadow op.
 
+Then three phases on the same layout:
+
+- ``search``: in a working directory of its own, the train CLI with
+  ``--flag_config_file_opt`` (the published HYPELCNN JSON pinned at full
+  width, batch 48, but a log-uniform learning rate from 1e-4 to 1e-3), 2
+  trials of 100 steps, then a rerun with 1 trial that loads both:
+  ``classification_opt.db`` holds trials 0 to 2, each trial's loss is
+  finite and below the first step's, the gather's launches are exact by
+  batch size; then the GAN CLI with ``configs/gan/cycle_gan_flags_opt.json``,
+  2 trials of 200 steps: ``gan_shadow_opt.db`` holds 2 trials, finite;
+- ``records``: ``record_writer`` writes the splits at k = 3 as the ``.npz``
+  cache and as the ``.tfrecord`` set, ``RecordImporter`` reads both back
+  bit for bit ``InMemoryImporter``'s patches (the records' labels too, their
+  (x, y) zero), then the train CLI from the cache for 100 steps: no gather
+  launch, a falling loss; bytes, write and read seconds, the step;
+- ``tf_checkpoint``: the committed TF fixture
+  (``tests/torch_fixtures/tf_cycle_gan_144``) at GRSS2013's declared
+  ``model.ckpt-5000``: 1,024 pixels shadow and de-shadow on the card as on
+  the CPU to 1e-5; the train CLI with ``--augment_data_with_shadow
+  cycle_gan`` for 100 steps: 0.25 to 0.35 of the windows shadowed, a falling
+  loss, the gather's launches; the reader's seconds, the step beside
+  ``gan_augmented``'s.
+
 Then ``fused_levels``: fused and unfused multi-scale levels give the same
 logits on 256 windows at full width, HYPELCNN and DUALCNN, and DUALCNN's
 sweep and step are timed both ways; and the ``kernels`` line gains the k = 5
 band, each family's training step, the GULFPORT and AVON training steps
 (C = 65 and 360) and a single window; the training step's row counts the
-GAN-augmented runs' steps too (the launch floor, with the main path's
+GAN-augmented, search and TF-checkpoint runs' steps too, and the eval row
+their drains (the launch floor, with the main path's
 launches at B = 1, which must be none). A last line
 before the result gives each phase's seconds.
 
@@ -139,8 +163,10 @@ import contextlib
 import io
 import json
 import math
+import os
 import re
 import shutil
+import sqlite3
 import statistics
 import subprocess
 import sys
@@ -191,6 +217,11 @@ from hypelcnn_tpu_torch.train.checkpoint import (
     save_checkpoint,
 )
 from hypelcnn_tpu_torch.train.trainer import ClassificationTrainer, make_epoch_index_stream
+from hypelcnn_tpu_torch.utils import record_writer
+from hypelcnn_tpu_torch.utils.tf_checkpoint_import import (
+    is_tf_checkpoint,
+    load_tf_checkpoint_values,
+)
 from hypelcnn_tpu_torch.utils.tiff_io import imread, read_tags
 
 ROOT = Path(__file__).resolve().parent
@@ -239,13 +270,20 @@ MEMBER_DRAWS, DUAL_CHECKS = 10240, 4096
 AVON_SIZE = {"height": 500, "width": 300}  # AVON's size is not published; this is ours
 LOADER_OA = {"GRSS2013DataLoader": 0.5, "GRSS2018DataLoader": 0.5,
              "GULFPORTALTDataLoader": 0.5, "AVONDataLoader": 0.75}  # chance 1/15, 1/20, 1/11, 1/2
-FUSED_PAIRS = 10  # DUALCNN step pairs, unfused against fused
+FUSED_PAIRS = 5  # DUALCNN step pairs, unfused against fused
 # the GAN phases, on the GRSS2013 layout (144 CASI bands)
-GAN_BANDS, GAN_BATCH, GAN_STEPS, GAN_VALIDATION, GAN_RESUME_STEPS = 144, 32, 2000, 1000, 2500
-GAN_TIMED_STEPS, GAN_FAMILY_STEPS, TRANSLATE_CHECKS = 100, 200, 4096
+GAN_BANDS, GAN_BATCH, GAN_STEPS, GAN_VALIDATION, GAN_RESUME_STEPS = 144, 32, 500, 250, 625
+GAN_TIMED_STEPS, GAN_FAMILY_STEPS, TRANSLATE_CHECKS = 50, 30, 4096
 GAN_FAMILIES = ["cycle_gan", "gan_x2y", "gan_y2x", "cut_x2y", "cut_y2x", "dcl_gan",
                 "dcl_cycle_gan"]
 GAN_AUGMENTED_STEPS, SIMPLE_AUGMENTED_STEPS, SHADOW_THRESHOLD = 200, 50, 0.3
+# the search, records and TF checkpoint phases, on the same layout
+SEARCH_STEPS, GAN_SEARCH_STEPS, RECORD_STEPS, TF_AUGMENTED_STEPS = 100, 200, 100, 100
+SEARCH_LEARNING_RATE = {"min": 1e-4, "max": 1e-3, "log": True}
+GAN_SPACE = ROOT / "configs" / "gan" / "cycle_gan_flags_opt.json"
+TF_FIXTURE = ROOT / "tests" / "torch_fixtures" / "tf_cycle_gan_144"
+TF_TRANSLATE_CHECKS = 1024
+PROFILED_STEPS = 25  # profile_train's traced steps
 # the gather's launches by batch size in each main-path run (CLI runs), in order
 MAIN_PATH_RUNS: list = []
 
@@ -852,18 +890,19 @@ def phase_fused_levels(device, scene3, dual) -> None:
 
 
 def _fused_timings(device, dual, unfused, fused) -> dict:
-    """DUALCNN unfused and fused: the sweep (median of 3 after a warm-up)
-    with its peak memory, then the step in FUSED_PAIRS pairs of 50-step
-    runs after 10 warm-up steps each, alternating which version runs first
-    (the host-bound step drifts within a call by more than the versions
-    differ), with each version's kernel launches and idle share over 20
-    traced steps."""
+    """DUALCNN unfused and fused: the sweep (one run after a warm-up; three
+    runs spread by 0.07% in earlier calls) with its peak memory, then the
+    step in FUSED_PAIRS pairs of 50-step runs after 10 warm-up steps each,
+    alternating which version runs first (the host-bound step drifts within
+    a call by more than the versions differ), with each version's kernel
+    launches and idle share over 20 traced steps."""
     family, scene, data = dual["family"], dual["scene"], dual["data"]
     timed = {}
     for name, module in (("unfused", unfused), ("fused", fused)):
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
-        sweep = _timed_sweeps(lambda m=module: predict_full_scene(m, scene, device=device))
+        sweep = _timed_sweeps(lambda m=module: predict_full_scene(m, scene, device=device),
+                              runs=1)
         timed[name] = {"sweep_seconds": statistics.median(sweep), "sweep_runs": sweep,
                        "sweep_peak_device_bytes": torch.cuda.max_memory_allocated()}
     steppers = {}
@@ -1042,7 +1081,8 @@ def phase_loader_grss2013(device, work: Path) -> dict:
     emit({**_loader_record("loader_grss2013", written, read, run, steps), **launches,
           "infer_launches": infer_launches, "infer_cli_seconds": infer_seconds,
           "classes_in_map": len(np.unique(cli_map))})
-    return {"run": run, "root": root}
+    return {"run": run, "root": root, "targets": read["targets"],
+            "first_loss": steps["first_loss"], "step_seconds": steps["step_seconds"]}
 
 
 def phase_loader_grss2018(device, work: Path) -> None:
@@ -1255,9 +1295,10 @@ def _gan_step_record(step_fn, state, start: int, count: int, traced_steps: int =
 
 def phase_gan_train(device, work: Path, root: Path) -> dict:
     """``gan_train_for_shadow`` (cycle_gan, random pairing, batch 32) on the
-    GRSS2013 layout that ``loader_grss2013`` wrote: 2,000 steps, validation
-    and checkpoints every 1,000; then a rerun to 2,500 that resumes at 2,000
-    from a state that restores bit for bit; then the step through the API."""
+    GRSS2013 layout that ``loader_grss2013`` wrote: ``GAN_STEPS`` steps,
+    validation and checkpoints every ``GAN_VALIDATION``; then a rerun to
+    ``GAN_RESUME_STEPS`` that resumes from a state that restores bit for bit;
+    then the step through the API."""
     captured = {}
     build = gan_train_for_shadow.build_step_fn
 
@@ -1341,8 +1382,8 @@ def phase_gan_train(device, work: Path, root: Path) -> dict:
 
 
 def phase_gan_families(device, pairs: dict) -> dict:
-    """Each of the seven GAN families on the device pairs at batch 32: 200
-    steps with finite losses, the step's numbers, and 3 steps on the card
+    """Each of the seven GAN families on the device pairs at batch 32:
+    ``GAN_FAMILY_STEPS`` steps with finite losses, the step's numbers, and 3 steps on the card
     against the CPU from one init, on the same batches and pool draws; then
     dcl_cycle_gan against dcl_gan, bit for bit under cuDNN's deterministic
     algorithms."""
@@ -1495,6 +1536,80 @@ def phase_gan_infer_image(device, work: Path, root: Path, log_dir: Path) -> None
           "translate_scene": timed, **{f"translate_{k}": v for k, v in _translate_bound().items()}})
 
 
+def _augmented_cli(work: Path, root: Path, method: str, steps: int, targets: dict) -> dict:
+    """The train CLI on the GRSS2013 layout at HYPELCNN's full width, batch
+    48, with ``--augment_data_with_shadow method`` at threshold 0.3: its
+    result, logged losses, time, peak memory and the gather's exact launches."""
+    log_root = work / f"augmented_{method}_{steps}"
+    args = ["--device=cuda", "--loader_name=GRSS2013DataLoader", f"--path={root}",
+            "--model_name=HYPELCNNModel", "--importer_name=GeneratorImporter",
+            f"--neighborhood={NEIGHBORHOOD}", f"--algorithm_param_path={PARAMS_PATH}",
+            f"--batch_size={LOADER_BATCH}", f"--train_ratio={LOADER_TRAIN_RATIO}",
+            f"--test_ratio={LOADER_TEST_RATIO}", f"--step={steps}",
+            f"--save_checkpoint_steps={steps}", f"--augment_data_with_shadow={method}",
+            f"--augmentation_random_threshold={SHADOW_THRESHOLD}", f"--base_log_path={log_root}"]
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    start = time.perf_counter()
+    result, _ = _run_train_cli(args)
+    cli_seconds = time.perf_counter() - start
+    by_batch = _note_main_path()
+    launches = window_gather_cuda.launches
+    (run_dir,) = [p for p in log_root.iterdir() if p.is_dir()]
+    losses = _logged_losses(run_dir)
+    check(len(losses) >= 1 and all(math.isfinite(v) for _, v in losses),
+          f"{method} augmentation: losses {losses}")
+    return {"result": result, "by_batch": by_batch, "losses": losses,
+            "cli_seconds": cli_seconds, "steps": steps,
+            "cli_peak_device_bytes": torch.cuda.max_memory_allocated(),
+            **_check_launches(f"{method} augmentation", by_batch, launches, targets, steps,
+                              LOADER_BATCH)}
+
+
+def _augmented_record(run: dict) -> dict:
+    return {"steps": run["steps"], "logged_losses": run["losses"],
+            "test_oa": run["result"].test_accuracy,
+            "gather_launches_by_batch": {str(b): n for b, n in sorted(run["by_batch"].items())},
+            "gather_launches": run["gather_launches"], "cli_seconds": run["cli_seconds"],
+            "cli_peak_device_bytes": run["cli_peak_device_bytes"]}
+
+
+def _shadow_checks(data, info, device, run: dict) -> dict:
+    """The CLI's first step again with the shadow op (its loss must be above
+    the run's last logged one) and the share of windows the op changed over
+    the run's steps, which must lie within 0.25 and 0.35."""
+    trainer = _trainer(data, _loader_params(), device, info)
+    state = trainer.init_state()
+    tables = trainer.training_tables(run["steps"], LOADER_BATCH)
+    first_loss = float(trainer.train_step(state, tables, 0))
+    check(run["losses"][-1][1] < first_loss,
+          f"shadow augmentation: the loss did not fall from {first_loss}: {run['losses']}")
+    source = data.sources["training"]
+    arrays = source.device_arrays(device)
+    shadowed = 0
+    with torch.no_grad():
+        for step in range(run["steps"]):
+            idx = tables.indices[step]
+            patches = source.gather(arrays, idx, tables.coords.index_select(0, idx))
+            augmented = augment_batch(patches, info, trainer.rng_pool.generator("augment", step,
+                                                                                device))
+            shadowed += int((augmented != patches).flatten(1).any(1).sum())
+    share = shadowed / (run["steps"] * LOADER_BATCH)
+    check(0.25 <= share <= 0.35, f"{share} of the windows were shadowed")
+    return {"first_loss": first_loss, "shadowed_share": share,
+            "windows": run["steps"] * LOADER_BATCH}
+
+
+def _augmented_step(data, info, device) -> dict:
+    """The step with ``info``'s augmentation (median of 3 runs of 30 after 10)."""
+    stepper = _trainer(data, _loader_params(), device, info)
+    state = stepper.init_state()
+    tables = stepper.training_tables(10 + 3 * 30, LOADER_BATCH)
+    _timed_steps(stepper, state, tables, 0, 10)
+    step_runs = [_timed_steps(stepper, state, tables, 10 + 30 * i, 30) / 30 for i in range(3)]
+    return {"step_seconds": statistics.median(step_runs), "step_runs": step_runs}
+
+
 def phase_gan_augmented(device, work: Path, root: Path, log_dir: Path) -> dict:
     """The GAN's ``gan_params`` installed at GRSS2013's declared cycle_gan
     path; the train CLI at HYPELCNN's full width, batch 48, with cycle_gan
@@ -1506,79 +1621,256 @@ def phase_gan_augmented(device, work: Path, root: Path, log_dir: Path) -> dict:
     shutil.copytree(log_dir / "gan_params", target)
     data, read = _read("GRSS2013DataLoader", root, LOADER_TRAIN_RATIO, LOADER_TEST_RATIO, device,
                        [])
-    runs = {}
-    for method, steps in (("cycle_gan", GAN_AUGMENTED_STEPS), ("simple", SIMPLE_AUGMENTED_STEPS)):
-        args = ["--device=cuda", "--loader_name=GRSS2013DataLoader", f"--path={root}",
-                "--model_name=HYPELCNNModel", "--importer_name=GeneratorImporter",
-                f"--neighborhood={NEIGHBORHOOD}", f"--algorithm_param_path={PARAMS_PATH}",
-                f"--batch_size={LOADER_BATCH}", f"--train_ratio={LOADER_TRAIN_RATIO}",
-                f"--test_ratio={LOADER_TEST_RATIO}", f"--step={steps}",
-                f"--save_checkpoint_steps={steps}", f"--augment_data_with_shadow={method}",
-                f"--augmentation_random_threshold={SHADOW_THRESHOLD}",
-                f"--base_log_path={work / ('augmented_' + method)}"]
-        torch.cuda.reset_peak_memory_stats()
-        reset_launches()
-        start = time.perf_counter()
-        result, _ = _run_train_cli(args)
-        cli_seconds = time.perf_counter() - start
-        by_batch = _note_main_path()
-        launches = window_gather_cuda.launches
-        (run_dir,) = [p for p in (work / ("augmented_" + method)).iterdir() if p.is_dir()]
-        losses = _logged_losses(run_dir)
-        check(len(losses) >= 1 and all(math.isfinite(v) for _, v in losses),
-              f"{method} augmentation: losses {losses}")
-        runs[method] = {"result": result, "by_batch": by_batch, "losses": losses,
-                        "cli_seconds": cli_seconds, "steps": steps,
-                        "cli_peak_device_bytes": torch.cuda.max_memory_allocated(),
-                        **_check_launches(f"{method} augmentation", by_batch, launches,
-                                          read["targets"], steps, LOADER_BATCH)}
+    runs = {method: _augmented_cli(work, root, method, steps, read["targets"])
+            for method, steps in (("cycle_gan", GAN_AUGMENTED_STEPS),
+                                  ("simple", SIMPLE_AUGMENTED_STEPS))}
     gan = runs["cycle_gan"]
     check(gan["result"].test_accuracy >= 0.9,
           f"GAN-augmented test OA {gan['result'].test_accuracy}")
 
-    # the trainer the CLI built, with its shadow op: the windows each step
-    # shadowed (those the op changed), the first step's loss, step times
+    # the trainer the CLI built, with its shadow op
     creators = build_shadow_creators(data.loader, data.scene, NEIGHBORHOOD, device)
     check(sorted(creators) == ["cycle_gan", "simple"], f"shadow creators: {sorted(creators)}")
     info = AugmentationInfo(shadow_struct=creators["cycle_gan"], perform_shadow_augmentation=True,
                             augmentation_random_threshold=SHADOW_THRESHOLD)
-    trainer = _trainer(data, _loader_params(), device, info)
-    state = trainer.init_state()
-    tables = trainer.training_tables(GAN_AUGMENTED_STEPS, LOADER_BATCH)
-    first_loss = float(trainer.train_step(state, tables, 0))
-    check(gan["losses"][-1][1] < first_loss,
-          f"GAN augmentation: the loss did not fall from {first_loss}: {gan['losses']}")
-    source = data.sources["training"]
-    arrays = source.device_arrays(device)
-    shadowed = 0
-    with torch.no_grad():
-        for step in range(GAN_AUGMENTED_STEPS):
-            idx = tables.indices[step]
-            patches = source.gather(arrays, idx, tables.coords.index_select(0, idx))
-            augmented = augment_batch(patches, info, trainer.rng_pool.generator("augment", step,
-                                                                                device))
-            shadowed += int((augmented != patches).flatten(1).any(1).sum())
-    share = shadowed / (GAN_AUGMENTED_STEPS * LOADER_BATCH)
-    check(0.25 <= share <= 0.35, f"{share} of the windows were shadowed")
-    timed = {}
-    for name, augmentation in (("plain", None), ("gan_shadow", info)):
-        stepper = _trainer(data, _loader_params(), device, augmentation)
-        s = stepper.init_state()
-        t = stepper.training_tables(10 + 3 * 30, LOADER_BATCH)
-        _timed_steps(stepper, s, t, 0, 10)
-        step_runs = [_timed_steps(stepper, s, t, 10 + 30 * i, 30) / 30 for i in range(3)]
-        timed[name] = {"step_seconds": statistics.median(step_runs), "step_runs": step_runs}
-    emit({"phase": "gan_augmented", "threshold": SHADOW_THRESHOLD, "shadowed_share": share,
-          "windows": GAN_AUGMENTED_STEPS * LOADER_BATCH, "first_loss": first_loss,
+    shadow = _shadow_checks(data, info, device, gan)
+    timed = {"plain": _augmented_step(data, None, device),
+             "gan_shadow": _augmented_step(data, info, device)}
+    emit({"phase": "gan_augmented", "threshold": SHADOW_THRESHOLD, **shadow,
           "installed_at": str(target.relative_to(root)), "step": timed,
-          **{method: {"steps": r["steps"], "logged_losses": r["losses"],
-                      "test_oa": r["result"].test_accuracy,
-                      "gather_launches_by_batch": {str(b): n for b, n in
-                                                   sorted(r["by_batch"].items())},
-                      "gather_launches": r["gather_launches"], "cli_seconds": r["cli_seconds"],
-                      "cli_peak_device_bytes": r["cli_peak_device_bytes"]}
-             for method, r in runs.items()}})
-    return {"launches": sum(r["by_batch"].get(LOADER_BATCH, 0) for r in runs.values())}
+          **{method: _augmented_record(r) for method, r in runs.items()}})
+    return {"launches": sum(r["by_batch"].get(LOADER_BATCH, 0) for r in runs.values()),
+            "step": timed}
+
+
+# ---- the search, records and TF checkpoint phases ----
+
+
+def _study_rows(db: Path) -> list:
+    with sqlite3.connect(db) as conn:
+        return conn.execute("SELECT study, number, value, params FROM trials "
+                            "ORDER BY number").fetchall()
+
+
+def _trial_dirs(base: Path) -> list:
+    return sorted(p for p in base.parent.iterdir() if p.name.startswith(base.name + "_"))
+
+
+def phase_search(device, work: Path, root: Path, grss: dict) -> dict:
+    """Hyperparameter search on the GRSS2013 layout, in its own working
+    directory: the classifier train CLI with ``--flag_config_file_opt`` (the
+    published HYPELCNN JSON pinned at full width but a log-uniform learning
+    rate), 2 trials of 100 steps at batch 48, then a rerun with 1 trial that
+    loads both; then the GAN CLI with ``configs/gan/cycle_gan_flags_opt.json``,
+    2 trials of 200 steps."""
+    search_dir = work / "search"
+    search_dir.mkdir()
+    space = {**json.loads(PARAMS_PATH.read_text()), "batch_size": LOADER_BATCH,
+             "learning_rate": SEARCH_LEARNING_RATE}
+    space_path = search_dir / "space.json"
+    space_path.write_text(json.dumps(space))
+    base = search_dir / "classifier"
+    args = ["--device=cuda", "--loader_name=GRSS2013DataLoader", f"--path={root}",
+            "--model_name=HYPELCNNModel", "--importer_name=GeneratorImporter",
+            f"--neighborhood={NEIGHBORHOOD}", f"--train_ratio={LOADER_TRAIN_RATIO}",
+            f"--test_ratio={LOADER_TEST_RATIO}", f"--step={SEARCH_STEPS}",
+            f"--flag_config_file_opt={space_path}", "--opt_run_count=1",
+            f"--base_log_path={base}"]
+    cwd = os.getcwd()
+    os.chdir(search_dir)
+    try:
+        runs, seconds = [], []
+        for trials in (2, 1):
+            reset_launches()
+            start = time.perf_counter()
+            study, out = _run_quiet(train_for_classification.main,
+                                    args + [f"--opt_trial_count={trials}"])
+            seconds.append(time.perf_counter() - start)
+            runs.append((_note_main_path(), window_gather_cuda.launches, out))
+        gan_base = search_dir / "gan"
+        start = time.perf_counter()
+        gan_study, gan_out = _run_quiet(gan_train_for_shadow.main, [
+            "--device=cuda", "--loader_name=GRSS2013DataLoader", f"--path={root}",
+            "--gan_type=cycle_gan", "--pairing_method=random", f"--step={GAN_SEARCH_STEPS}",
+            f"--flag_config_file_opt={GAN_SPACE}", "--opt_trial_count=2", "--opt_run_count=1",
+            f"--base_log_path={gan_base}"])
+        gan_seconds = time.perf_counter() - start
+    finally:
+        os.chdir(cwd)
+
+    check("Loaded 2 prior trials for study classification_opt" in runs[1][2],
+          "the classifier search's rerun did not load its 2 earlier trials")
+    rows = _study_rows(search_dir / "classification_opt.db")
+    check([r[:2] for r in rows] == [("classification_opt", n) for n in range(3)]
+          and [t["number"] for t in study.trials] == [0, 1, 2],
+          f"classification_opt trials: {[r[:3] for r in rows]}")
+    check(all(0.0 <= r[2] <= 1.0 for r in rows), f"1 - validation OA: {[r[2] for r in rows]}")
+    # every trial through the CUDA gather, counted by batch size as in ``train``
+    launches = {"steps": 0, "eval_batches": 0}
+    for (by_batch, total, _), trials in zip(runs, (2, 1)):
+        expected = _expected_launches(0, SEARCH_STEPS, grss["targets"]["test"],
+                                      grss["targets"]["validation"])
+        measured = {"steps": by_batch.get(LOADER_BATCH, 0),
+                    "eval_batches": total - by_batch.get(LOADER_BATCH, 0)}
+        check(measured == {"steps": trials * expected["steps"],
+                           "eval_batches": trials * expected["eval_batches"]},
+              f"search: gather launches {measured} (by batch {by_batch}) over {trials} "
+              f"trials, expected {expected} each")
+        for key in launches:
+            launches[key] += measured[key]
+    trial_losses = []
+    for log_dir in _trial_dirs(base):
+        losses = _logged_losses(log_dir)
+        check(len(losses) == 1 and math.isfinite(losses[0][1])
+              and losses[0][1] < grss["first_loss"],
+              f"search trial {log_dir.name}: loss {losses} against the first step's "
+              f"{grss['first_loss']}")
+        trial_losses.append(losses[0][1])
+    check(len(trial_losses) == 3, f"{len(trial_losses)} classifier trial log dirs")
+
+    gan_rows = _study_rows(search_dir / "gan_shadow_opt.db")
+    check([r[:2] for r in gan_rows] == [("gan_shadow_opt", 0), ("gan_shadow_opt", 1)]
+          and all(math.isfinite(r[2]) for r in gan_rows) and len(gan_study.trials) == 2,
+          f"gan_shadow_opt trials: {[r[:3] for r in gan_rows]}")
+    gan_losses = [float(m.group(1)) for m in
+                  re.finditer(rf"^step {GAN_SEARCH_STEPS}: generator_loss=(\S+) ", gan_out, re.M)]
+    check(len(gan_losses) == 2 and all(math.isfinite(v) for v in gan_losses),
+          f"GAN search generator losses: {gan_losses}")
+    emit({"phase": "search", "steps": SEARCH_STEPS, "batch": LOADER_BATCH,
+          "classifier_trials": [{"number": r[1], "value": r[2], "params": json.loads(r[3])}
+                                for r in rows],
+          "trial_losses": trial_losses, "first_loss": grss["first_loss"],
+          "gather_launches": launches, "cli_seconds": seconds,
+          "gan_steps": GAN_SEARCH_STEPS,
+          "gan_trials": [{"number": r[1], "value": r[2], "params": json.loads(r[3])}
+                         for r in gan_rows],
+          "gan_generator_losses": gan_losses, "gan_cli_seconds": gan_seconds})
+    return launches
+
+
+def phase_records(device, work: Path, root: Path, grss: dict) -> None:
+    """``record_writer`` writes the GRSS2013 layout's splits at k = 3 as the
+    ``.npz`` cache and as the reference's ``.tfrecord`` set; ``RecordImporter``
+    reads both back, equal bit for bit to ``InMemoryImporter``'s patches (and,
+    for the records, which hold no coordinates, its labels); then the train
+    CLI trains from the cache with no gather launch."""
+    common = ["--loader_name=GRSS2013DataLoader", f"--path={root}",
+              f"--neighborhood={NEIGHBORHOOD}", f"--train_ratio={LOADER_TRAIN_RATIO}",
+              f"--test_ratio={LOADER_TEST_RATIO}"]
+    written, read, imported = {}, {}, {}
+    for fmt in ("npz", "tfrecord"):
+        out = work / f"records_{fmt}"
+        set_run_seed()  # the loader's split draws, as the train CLI seeds them
+        start = time.perf_counter()
+        _run_quiet(record_writer.main, common + [f"--output_path={out}", f"--format={fmt}"])
+        written[fmt] = {"seconds": time.perf_counter() - start,
+                        "bytes": sum(f.stat().st_size for f in out.iterdir()),
+                        "files": sorted(f.name for f in out.iterdir())}
+        start = time.perf_counter()
+        imported[fmt] = get_importer_from_name("RecordImporter").read_data_set(
+            "GRSS2013DataLoader", str(out), None, None, None)
+        read[fmt] = {"seconds": time.perf_counter() - start}
+    set_run_seed()
+    memory = get_importer_from_name("InMemoryImporter").read_data_set(
+        "GRSS2013DataLoader", str(root), LOADER_TRAIN_RATIO, LOADER_TEST_RATIO, NEIGHBORHOOD)
+    counts = {}
+    for split in ("training", "test", "validation"):
+        expected = memory.sources[split].patches
+        counts[split] = int(expected.shape[0])
+        for fmt, data in imported.items():
+            check(data.scene is None and data.sources[split].patches.shape == expected.shape
+                  and np.array_equal(data.sources[split].patches, expected),
+                  f"{fmt} records: {split} patches differ from InMemoryImporter's")
+        check(np.array_equal(imported["npz"].targets(split), memory.targets(split)),
+              f"npz cache: {split} targets differ")
+        check(np.array_equal(imported["tfrecord"].targets(split)[:, 2],
+                             memory.targets(split)[:, 2])
+              and not imported["tfrecord"].targets(split)[:, :2].any(),
+              f"tfrecord: {split} labels differ, or its (x, y) are not zero")
+    check(imported["tfrecord"].class_count == imported["npz"].class_count == 15,
+          "records: class counts")
+
+    log_root = work / "records_log"
+    args = ["--device=cuda", "--loader_name=GRSS2013DataLoader",
+            f"--path={work / 'records_npz'}", "--model_name=HYPELCNNModel",
+            "--importer_name=RecordImporter", f"--neighborhood={NEIGHBORHOOD}",
+            f"--algorithm_param_path={PARAMS_PATH}", f"--batch_size={LOADER_BATCH}",
+            f"--step={RECORD_STEPS}", f"--save_checkpoint_steps={RECORD_STEPS}",
+            f"--base_log_path={log_root}"]
+    reset_launches()
+    start = time.perf_counter()
+    result, _ = _run_train_cli(args)
+    cli_seconds = time.perf_counter() - start
+    _note_main_path()
+    check(window_gather_cuda.launches == 0,
+          f"RecordImporter launched the gather {window_gather_cuda.launches} times")
+    (log_dir,) = [p for p in log_root.iterdir() if p.is_dir()]
+    run = {"losses": _logged_losses(log_dir)}
+    check(len(run["losses"]) == 1 and math.isfinite(run["losses"][0][1]),
+          f"records: logged losses {run['losses']}")
+    steps = _loader_steps(device, imported["npz"], "RecordImporter", run)
+    emit({"phase": "records", "targets": counts, "written": written, "read": read,
+          "steps": RECORD_STEPS, "batch": LOADER_BATCH, "logged_losses": run["losses"],
+          "first_loss": steps["first_loss"], "test_oa": result.test_accuracy,
+          "gather_launches": 0, "cli_seconds": cli_seconds,
+          "step_seconds": steps["step_seconds"], "step_runs": steps["step_runs"],
+          "grss2013_step_seconds": grss["step_seconds"]})
+
+
+def phase_tf_checkpoint(device, work: Path, root: Path, augmented: dict) -> dict:
+    """The committed TF fixture (``tests/torch_fixtures/tf_cycle_gan_144``)
+    at GRSS2013's declared ``shadow_gen_model/cycle_gan/model.ckpt-5000``,
+    where ``gan_augmented`` had installed a params snapshot:
+    ``build_shadow_creators`` imports it; 1,024 pixels shadow and de-shadow on
+    the card as on the CPU, to 1e-5; the train CLI with
+    ``--augment_data_with_shadow=cycle_gan`` for 100 steps: a shadowed share
+    of 0.25 to 0.35, a falling loss and the gather's launches; the reader's
+    seconds and the step beside ``gan_augmented``'s."""
+    loader = GRSS2013DataLoader(str(root))
+    target = Path(loader.get_model_base_dir()) / loader.get_shadow_checkpoints()["cycle_gan"]
+    shutil.rmtree(target)
+    for path in TF_FIXTURE.iterdir():
+        shutil.copy2(path, target.parent / path.name)
+    check(is_tf_checkpoint(str(target)), f"{target} is not a TF checkpoint")
+    start = time.perf_counter()
+    values = load_tf_checkpoint_values(str(target))
+    read_seconds = time.perf_counter() - start
+    data, read = _read("GRSS2013DataLoader", root, LOADER_TRAIN_RATIO, LOADER_TEST_RATIO, device,
+                       [])
+    start = time.perf_counter()
+    creators = build_shadow_creators(data.loader, data.scene, NEIGHBORHOOD, device)
+    import_seconds = time.perf_counter() - start
+    on_cpu = build_shadow_creators(data.loader, data.scene, NEIGHBORHOOD, "cpu")
+    check(sorted(creators) == sorted(on_cpu) == ["cycle_gan", "simple"],
+          f"shadow creators: {sorted(creators)}, on the CPU {sorted(on_cpu)}")
+    rng = np.random.default_rng(SEED)
+    flat = data.scene.casi.reshape(-1, data.scene.casi.shape[-1])
+    pixels = torch.from_numpy(np.ascontiguousarray(
+        flat[rng.choice(flat.shape[0], TF_TRANSLATE_CHECKS, replace=False)], dtype=np.float32)
+    ).view(-1, 1, 1, flat.shape[-1])
+    errors = {}
+    for name in ("shadow_fn", "deshadow_fn"):
+        expected = getattr(on_cpu["cycle_gan"], name)(pixels)
+        got = getattr(creators["cycle_gan"], name)(pixels.to(device)).cpu()
+        errors[name] = float((got - expected).abs().max())
+        check(errors[name] <= 1e-5, f"{name}: the card differs from the CPU by {errors[name]}")
+        check(not torch.equal(expected[..., :GAN_BANDS], pixels[..., :GAN_BANDS]),
+              f"{name}: nothing was translated")
+
+    run = _augmented_cli(work, root, "cycle_gan", TF_AUGMENTED_STEPS, read["targets"])
+    info = AugmentationInfo(shadow_struct=creators["cycle_gan"], perform_shadow_augmentation=True,
+                            augmentation_random_threshold=SHADOW_THRESHOLD)
+    shadow = _shadow_checks(data, info, device, run)
+    step = _augmented_step(data, info, device)
+    emit({"phase": "tf_checkpoint", "fixture": str(TF_FIXTURE.relative_to(ROOT)),
+          "installed_at": str(target.relative_to(root)), "variables": len(values),
+          "fixture_bytes": sum(p.stat().st_size for p in TF_FIXTURE.iterdir()),
+          "read_seconds": read_seconds, "import_seconds": import_seconds,
+          "translate_abs_err_vs_cpu": errors, "checked": TF_TRANSLATE_CHECKS,
+          "threshold": SHADOW_THRESHOLD, **shadow, "step": step,
+          "gan_augmented_step": augmented["step"], "run": _augmented_record(run)})
+    return {"steps": run["gather_launches"]["steps"],
+            "eval_batches": run["gather_launches"]["eval_batches"]}
 
 
 def _event_times(fn, inputs) -> list:
@@ -1653,25 +1945,30 @@ def _bands(device, count: int = 20) -> list:
 
 
 def phase_kernels(device, scene, launches: int, train, families: dict, loaders: dict,
-                  augmented_launches: int) -> None:
+                  augmented_launches: int, later: dict) -> None:
     """Kernel rows; ``launches`` are the sweep's, ``train["launches"]`` the
     train CLI run's, split by batch size; ``families`` the family phases'
     results, with their launches by batch size; ``loaders`` the GULFPORT and
     AVON phases', whose train CLI runs launch at C = 65 and C = 360;
-    ``augmented_launches`` the GAN-augmented train CLI runs' steps'."""
+    ``augmented_launches`` the GAN-augmented train CLI runs' steps';
+    ``later`` the search and TF checkpoint phases' train CLI runs' launches
+    (``steps`` at the step's batch, ``eval_batches`` at the drains')."""
     scene_dev = scene.device_scene(device)
     rows = [_gather_row(scene_dev, _bands(device), launches)]
     # the training path's shapes: the step's batch and the eval drain's
     tables, train_launches = train["tables"], train["launches"]
     rows.append(_gather_row(scene_dev, _training_batches(tables, 0, 21),
-                            train_launches["steps"] + augmented_launches,
-                            " (training step; with the GAN-augmented steps)"))
+                            train_launches["steps"] + augmented_launches + later["steps"],
+                            " (training step; with the GAN-augmented, search and TF-checkpoint"
+                            " steps)"))
     train_coords = tables.coords
     gen = torch.Generator(device=device).manual_seed(SEED)
     eval_batches = [train_coords.index_select(0, torch.randperm(
         train_coords.shape[0], generator=gen, device=device)[:EVAL_BATCH]) for _ in range(21)]
-    rows.append(_gather_row(scene_dev, eval_batches, train_launches["eval_batches"],
-                            " (eval drain; its launches include the test drains' smaller batches)"))
+    rows.append(_gather_row(scene_dev, eval_batches,
+                            train_launches["eval_batches"] + later["eval_batches"],
+                            " (eval drain; its launches include the test drains' smaller batches"
+                            " and the search and TF-checkpoint runs' drains)"))
     # a single window: the launch floor; its launches are those of every
     # main-path run at B = 1, and there should be none
     single = sum(run.get(1, 0) for run in MAIN_PATH_RUNS)
@@ -1757,16 +2054,17 @@ def phase_profile(device, scene, module) -> None:
 
 
 def phase_profile_train(train) -> None:
-    """Device time by kernel over 50 traced training steps, against the
-    untraced wall time of the 50 steps just before them."""
+    """Device time by kernel over 25 traced training steps, against the
+    untraced wall time of the 25 steps just before them."""
     trainer, state, tables, start = train["trainer"], train["state"], train["tables"], \
         train["next_step"]
-    rows, summary = _steps_profile(trainer, state, tables, start, 50)
+    rows, summary = _steps_profile(trainer, state, tables, start, PROFILED_STEPS)
     # the tracer can miss a kernel at the edge of the window (49 of 50 seen
     # once); that every step runs the gather is the train phase's exact count
     gather = [row for row in rows if "window_gather" in row[0]]
-    check(len(gather) == 1 and 0 < gather[0][2] <= 50, f"gather kernels in the trace: {gather}")
-    emit({"phase": "profile_train", "steps": 50, **summary,
+    check(len(gather) == 1 and 0 < gather[0][2] <= PROFILED_STEPS,
+          f"gather kernels in the trace: {gather}")
+    emit({"phase": "profile_train", "steps": PROFILED_STEPS, **summary,
           "gather_us_per_launch": gather[0][1] * 1e3 / gather[0][2]})
 
 
@@ -1809,9 +2107,14 @@ def main() -> int:
         timed("gan_infer_image", phase_gan_infer_image, device, Path(work), root, gan["log_dir"])
         augmented = timed("gan_augmented", phase_gan_augmented, device, Path(work), root,
                           gan["log_dir"])
+        searched = timed("search", phase_search, device, Path(work), root, grss2013)
+        timed("records", phase_records, device, Path(work), root, grss2013)
+        imported = timed("tf_checkpoint", phase_tf_checkpoint, device, Path(work), root,
+                         augmented)
     timed("fused_levels", phase_fused_levels, device, scene, families["family_dualcnn"])
+    later = {key: searched[key] + imported[key] for key in ("steps", "eval_batches")}
     timed("kernels", phase_kernels, device, scene, launches, train, families, loaders,
-          augmented["launches"])
+          augmented["launches"], later)
     timed("profile", phase_profile, device, scene, module)
     timed("profile_train", phase_profile_train, train)
     torch.cuda.synchronize()

@@ -18,13 +18,21 @@ directions (``best_ratio_*.json``), and writes a params snapshot
 ``step // validation_steps`` kept); at the end ``gan_params``, which
 ``gan_infer_for_shadow``, ``gan_infer_image_for_shadow`` and the classifier's
 ``--augment_data_with_shadow`` read. A log dir that holds a full state is
-resumed from. Not ported yet: ``--flag_config_file_opt`` (hyperparameter
-search, ROADMAP.md A14).
+resumed from.
+
+``--flag_config_file_opt=SPACE.json`` (``configs/gan/*_flags_opt.json``)
+runs a hyperparameter search instead: ``--opt_trial_count`` trials of
+``--opt_run_count`` runs each, every run a session on ``--device`` with the
+space's suggestions laid over the flags, under ``<base_log_path>_<random
+suffix>``. A trial's score is the largest of its runs' mean divergences; the
+study ``gan_shadow_opt`` is kept in ``gan_shadow_opt.db`` in the working
+directory, and a rerun continues it.
 """
 
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import os
 import time
@@ -53,6 +61,7 @@ from hypelcnn_tpu_torch.gan.wrapper_registry import get_sampling_map, get_traine
 from hypelcnn_tpu_torch.gan.wrappers.base import GANState, GANTrainerBase
 from hypelcnn_tpu_torch.train.checkpoint import restore_checkpoint, save_checkpoint, save_params
 from hypelcnn_tpu_torch.train.trainer import make_epoch_index_stream
+from hypelcnn_tpu_torch.tune.search import create_study, objective
 from hypelcnn_tpu_torch.utils.text import replace_abbrs
 
 
@@ -208,7 +217,9 @@ def run_session(params, base_log_path, device) -> List[float]:
             max(best_mean) if best_mean else float("nan")]
 
 
-def main(argv=None) -> List[float]:
+def main(argv=None):
+    """Run one session and return its divergences; in search mode, run the
+    study and return it."""
     parser = argparse.ArgumentParser()
     add_parse_cmds_for_loaders(parser)
     add_parse_cmds_for_loggers(parser)
@@ -223,8 +234,18 @@ def main(argv=None) -> List[float]:
     if flags.flag_config_file:
         flags = merge_flag_config_json(flags, flags.flag_config_file)
     if flags.flag_config_file_opt:
-        raise NotImplementedError("--flag_config_file_opt needs the hyperparameter search "
-                                  "(tune/search.py), which is not ported yet (ROADMAP.md A14)")
+        with open(flags.flag_config_file_opt, "r", encoding="utf-8") as fid:
+            params_from_json_opt = json.load(fid)
+        print("Running on hyper parameter optimization mode")
+        objective_func = functools.partial(
+            objective, params=dict(vars(flags)), params_from_json_opt=params_from_json_opt,
+            opt_run_count=flags.opt_run_count,
+            func_to_run=functools.partial(run_session, device=device),
+            base_log_path=flags.base_log_path)
+        study = create_study("gan_shadow_opt", direction="minimize",
+                             storage="sqlite:///gan_shadow_opt.db")
+        study.optimize(objective_func, n_trials=flags.opt_trial_count)
+        return study
     print("Running on training mode")
     divergences = run_session(params=dict(vars(flags)), base_log_path=flags.base_log_path,
                               device=device)

@@ -20,13 +20,23 @@ those of the restored model.
 (``--augmentation_random_threshold``) of each batch's windows: by the
 loader's band ratio, or through the frozen generator that
 ``gan_train_for_shadow`` trained, installed at the path the loader declares
-(``get_shadow_checkpoints``). Not ported yet: ``--flag_config_file_opt``
-(hyperparameter search, ROADMAP.md A14).
+(``get_shadow_checkpoints``): a params snapshot directory or a TF
+``model.ckpt-N``.
+
+``--flag_config_file_opt=SPACE.json`` runs a hyperparameter search instead:
+``--opt_trial_count`` trials of ``--opt_run_count`` runs each, every run an
+episode on ``--device`` under ``<base_log_path>_<random suffix>``. A trial's
+algorithm params are the flags as a dict with the space's suggestions laid
+over them (not the modelconfig JSON: a model key the space does not pin
+takes the model's default). Its score is the worst run's ``1 -
+validation_accuracy``; the study ``classification_opt`` is kept in
+``classification_opt.db`` in the working directory, and a rerun continues it.
 """
 
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import os
 import time
@@ -48,6 +58,7 @@ from hypelcnn_tpu_torch.core.rng import set_run_seed
 from hypelcnn_tpu_torch.data.augmentation import AugmentationInfo
 from hypelcnn_tpu_torch.gan.shadow_ops import build_shadow_creators
 from hypelcnn_tpu_torch.train.trainer import ClassificationTrainer, TrainingResult
+from hypelcnn_tpu_torch.tune.search import create_study, objective
 from hypelcnn_tpu_torch.utils.text import path_leaf, replace_abbrs
 
 
@@ -112,6 +123,9 @@ def perform_an_episode(flags, algorithm_params, model, base_log_path, device) ->
 
     shadow_struct = None
     if flags.augment_data_with_shadow is not None:
+        if data.scene is None:
+            raise ValueError("--augment_data_with_shadow needs a scene-backed importer "
+                             "(records carry no scene to shadow)")
         shadow_dict = build_shadow_creators(data.loader, data.scene, flags.neighborhood, device)
         if flags.augment_data_with_shadow not in shadow_dict:
             raise KeyError(f"unknown shadow method {flags.augment_data_with_shadow!r}; "
@@ -154,7 +168,9 @@ def perform_an_episode(flags, algorithm_params, model, base_log_path, device) ->
     return result
 
 
-def main(argv=None) -> TrainingResult:
+def main(argv=None):
+    """Train one episode and return its ``TrainingResult``; in search mode,
+    run the study and return it."""
     parser = argparse.ArgumentParser()
     add_parse_cmds_for_loaders(parser)
     add_parse_cmds_for_loggers(parser)
@@ -169,8 +185,22 @@ def main(argv=None) -> TrainingResult:
 
     nn_model = get_model_from_name(flags.model_name)
     if flags.flag_config_file_opt:
-        raise NotImplementedError("--flag_config_file_opt needs the hyperparameter search "
-                                  "(tune/search.py), which is not ported yet (ROADMAP.md A14)")
+        with open(flags.flag_config_file_opt, "r", encoding="utf-8") as fid:
+            params_from_json_opt = json.load(fid)
+        print("Running in hyper parameter optimization mode")
+
+        def run_session(params, base_log_path):
+            return [1 - perform_an_episode(flags, params, nn_model, base_log_path,
+                                           device).validation_accuracy]
+
+        objective_func = functools.partial(
+            objective, params=dict(vars(flags)), params_from_json_opt=params_from_json_opt,
+            opt_run_count=flags.opt_run_count, func_to_run=run_session,
+            base_log_path=flags.base_log_path)
+        study = create_study("classification_opt", direction="minimize",
+                             storage="sqlite:///classification_opt.db")
+        study.optimize(objective_func, n_trials=flags.opt_trial_count)
+        return study
     print("Running on training mode")
     algorithm_params = load_algorithm_params(nn_model.default_params(),
                                              flags.algorithm_param_path)

@@ -18,6 +18,9 @@ variable path maps to a ``state_dict`` key by name:
 - CAP's top-level ``digitcaps_w`` / ``digitcaps_b`` -> the same names, as they are.
 
 Every source leaf is used exactly once; a leaf of any other name raises.
+``flax_variables`` goes the other way, from a port ``state_dict`` to the
+flax-shaped ``params`` and ``batch_stats`` trees, so that code written
+against flax names (the TF checkpoint import) fills a port module.
 """
 
 from __future__ import annotations
@@ -98,3 +101,43 @@ def load_flax_variables(module: torch.nn.Module, params: Mapping,
     """Load flax variables into ``module``; raises on a leftover or missing key
     and on a shape that does not match."""
     module.load_state_dict(variables_to_state_dict(params, batch_stats), strict=True)
+
+
+def _flax_leaf(path: Tuple[str, ...], ndim: int):
+    """(collection, flax leaf, transpose) for a ``state_dict`` key's path."""
+    if len(path) == 1:
+        if ("params", path[0]) in _TOP_LEVEL_RULES:
+            return "params", path[0], None
+        return None
+    layer, leaf = path[-2:]
+    match = _FUSED_LEAF.fullmatch(leaf)
+    if layer.endswith("_fused") and match:
+        return "params", leaf, (2, 3, 1, 0) if match.group(1) == "kernel" else None
+    for pattern, kernel_transpose in ((_CONV_LAYER, _CONV_TRANSPOSE.get(ndim, (3, 2, 0, 1))),
+                                      (_DENSE_LAYER, (1, 0))):
+        if pattern.fullmatch(layer):
+            if leaf == "weight":
+                return "params", "kernel", tuple(np.argsort(kernel_transpose))
+            return ("params", "bias", None) if leaf == "bias" else None
+    for (collection, rule_layer, flax_leaf), (torch_leaf, _) in _RULES.items():
+        if rule_layer == layer and torch_leaf == leaf:
+            return collection, flax_leaf, None
+    return None
+
+
+def flax_variables(state_dict: Mapping[str, torch.Tensor]) -> Tuple[dict, dict]:
+    """The flax ``(params, batch_stats)`` trees (numpy leaves) that
+    :func:`variables_to_state_dict` maps to ``state_dict``."""
+    trees: Dict[str, dict] = {"params": {}, "batch_stats": {}}
+    for key, tensor in state_dict.items():
+        path = tuple(key.split("."))
+        array = tensor.detach().cpu().numpy()
+        rule = _flax_leaf(path, array.ndim)
+        if rule is None:
+            raise KeyError(f"no flax name for state_dict key {key}")
+        collection, leaf, transpose = rule
+        node = trees[collection]
+        for part in path[:-1]:
+            node = node.setdefault(part, {})
+        node[leaf] = array.transpose(transpose) if transpose is not None else array.copy()
+    return trees["params"], trees["batch_stats"]

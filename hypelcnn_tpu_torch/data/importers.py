@@ -14,12 +14,16 @@ step and the eval drains call on the device:
   cut on the host once (``get_data_point``; a ``MultiScene`` draws its
   members from the global ``np.random`` state), moved to the device once,
   and a step selects rows of it.
-- ``RecordImporter`` reads the ``.npz`` patch cache of the record writer,
-  which is not ported yet.
+- ``RecordImporter`` -> :class:`ArrayPatchSource` too, fed from the files
+  ``utils/record_writer.py`` writes: a ``patch_cache.npz``, or the
+  reference's four ``.tfrecord`` files (read with numpy,
+  ``utils/tfrecord_compat.py``). It carries no scene, so it never reaches
+  the window gather.
 """
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
 from typing import Any, Dict, Optional
 
@@ -34,6 +38,7 @@ from hypelcnn_tpu_torch.ops.window_gather import (
     gather_patches,
     gather_patches_dual,
 )
+from hypelcnn_tpu_torch.utils.tfrecord_compat import read_reference_tfrecords
 
 
 class PatchSource:
@@ -175,7 +180,69 @@ class InMemoryImporter(BaseImporter):
 
 @register_importer("RecordImporter")
 class RecordImporter(BaseImporter):
+    """Reads ``utils/record_writer.py``'s output: ``path`` is the
+    ``patch_cache.npz``, its directory, or a directory of the reference's
+    ``.tfrecord`` files (``metadata.tfrecord`` beside the splits), which
+    ``TFRecordImporter`` names too. The ratios and neighborhood are the
+    files'."""
+
     def read_data_set(self, loader_name, path, train_ratio, test_ratio, neighborhood,
                       normalize=True):
-        raise NotImplementedError("RecordImporter reads the record writer's patch cache, "
-                                  "which is not ported yet (ROADMAP.md A14)")
+        del train_ratio, test_ratio, neighborhood, normalize
+        record_dir = path if os.path.isdir(path) else os.path.dirname(path) or "."
+        if not path.endswith(".npz") and \
+                os.path.exists(os.path.join(record_dir, "metadata.tfrecord")):
+            return self._read_reference_tfrecords(loader_name, record_dir)
+        cache_path = path if path.endswith(".npz") else os.path.join(path, "patch_cache.npz")
+        with np.load(cache_path, allow_pickle=False) as blob:
+            sources = {split: ArrayPatchSource(blob[f"{split}_patches"])
+                       for split in ("training", "test", "validation")}
+            sample_set = SampleSet(training_targets=blob["training_targets"],
+                                   test_targets=blob["test_targets"],
+                                   validation_targets=blob["validation_targets"])
+            class_count = int(blob["class_count"])
+            color_list = blob["color_list"] if "color_list" in blob else \
+                np.zeros((class_count, 3), dtype=np.uint8)
+            data_shape = list(blob["data_shape"])
+        return ImportedDataSet(
+            loader=None, scene=None, sample_set=sample_set, class_count=class_count,
+            data_shape=data_shape, color_list=color_list, sources=sources)
+
+    @staticmethod
+    def _read_reference_tfrecords(loader_name, record_dir):
+        """The reference's records hold only ``{label, image}``: the targets'
+        ``(x, y)`` are zero, so whatever needs coordinates (a scene sweep,
+        target maps) needs a scene-backed importer. The class count and
+        colours are the named loader's, else from the labels."""
+        splits = read_reference_tfrecords(record_dir)
+        sources = {}
+        sample_targets = {}
+        data_shape = None
+        for split, (patches, labels) in splits.items():
+            targets = np.zeros((labels.shape[0], 3), dtype=np.int32)
+            targets[:, 2] = labels
+            sample_targets[split] = targets
+            sources[split] = ArrayPatchSource(patches)
+            if patches.shape[0]:
+                data_shape = list(patches.shape[1:])
+        sample_set = SampleSet(training_targets=sample_targets["training"],
+                               test_targets=sample_targets["test"],
+                               validation_targets=sample_targets["validation"])
+        class_count = int(max(int(t[:, 2].max(initial=0)) for t in sample_targets.values())) + 1
+        color_list = np.zeros((class_count, 3), dtype=np.uint8)
+        loader = None
+        if loader_name:
+            try:
+                loader = get_loader_from_name(loader_name, record_dir)
+                class_count = loader.get_class_count().stop
+                color_list = loader.get_samples_color_list()
+            except (KeyError, ValueError) as exc:
+                # an unknown loader, or one the record directory is no path
+                # for: reported, and the labels' class count kept
+                print(f"RecordImporter: loader {loader_name!r} unavailable ({exc}); "
+                      f"{class_count} classes from the labels")
+                loader = None
+        return ImportedDataSet(
+            loader=loader, scene=None, sample_set=sample_set,
+            class_count=class_count, data_shape=data_shape,
+            color_list=color_list, sources=sources)

@@ -4,13 +4,15 @@
   appended for the LiDAR channel); its inverse multiplies.
 - A GAN entry translates a window's HSI channels through a frozen trained
   generator, pixel by pixel, and passes the LiDAR channel through. It is
-  restored from the params snapshot directory (``gan_train_for_shadow``'s
-  ``gan_params`` or ``ckpt_params_N``) at the path the loader declares.
+  restored from what is at the path the loader declares: a params snapshot
+  directory (``gan_train_for_shadow``'s ``gan_params`` or
+  ``ckpt_params_N``), or a TF checkpoint (``model.ckpt-N``, as the
+  reference's trained generators are), whose generators are imported with
+  ``utils/tf_checkpoint_import.py``.
 
-A loader-declared path that holds a TF checkpoint (``model.ckpt-N``, as the
-reference's trained generators are) cannot be read yet (ROADMAP.md A14); a
-creator that fails to restore is reported and left out, so the train CLI's
-unknown-method error then names the creators that are available.
+A creator that fails to restore is reported and left out, as in the JAX
+package, so the train CLI's unknown-method error then names the creators
+that are available.
 """
 
 from __future__ import annotations
@@ -22,14 +24,11 @@ import numpy as np
 import torch
 
 from hypelcnn_tpu_torch.data.augmentation import ShadowOps
-
-
-def _is_tf_checkpoint(path: str) -> bool:
-    """A TF checkpoint prefix (an ``.index`` beside it) or directory (with a
-    ``checkpoint`` state file)."""
-    if os.path.isfile(path + ".index"):
-        return True
-    return os.path.isdir(path) and os.path.isfile(os.path.join(path, "checkpoint"))
+from hypelcnn_tpu_torch.models.layers import init_parameters
+from hypelcnn_tpu_torch.utils.tf_checkpoint_import import (
+    import_gan_generator_state_dict,
+    is_tf_checkpoint,
+)
 
 
 def create_simple_shadow_struct(shadow_ratio: np.ndarray, device) -> ShadowOps:
@@ -56,7 +55,7 @@ def build_shadow_creators(loader, scene, neighborhood: int, device,
                           max_steps: int = 100000) -> Dict[str, ShadowOps]:
     """The dataset's shadow augmenters on ``device``: ``simple`` where the
     loader has a shadow ratio, and each loader-declared generator whose
-    params snapshot restores."""
+    params snapshot or TF checkpoint restores."""
     creators: Dict[str, ShadowOps] = {}
     _, shadow_ratio = loader.load_shadow_map(neighborhood, scene)
     if shadow_ratio is not None:
@@ -73,13 +72,18 @@ def build_shadow_creators(loader, scene, neighborhood: int, device,
             if trainer is None:
                 continue
             try:
-                if _is_tf_checkpoint(path):
-                    raise NotImplementedError(
-                        "importing a TF checkpoint's generator is not ported yet "
-                        "(utils/tf_checkpoint_import.py, ROADMAP.md A14)")
-                if not os.path.isdir(path):
+                if is_tf_checkpoint(path):
+                    # the other networks keep a seeded init; only the
+                    # generators translate
+                    nets = trainer.build_nets()
+                    init_parameters(nets, torch.Generator().manual_seed(0))
+                    nets.load_state_dict(import_gan_generator_state_dict(name, nets, path),
+                                         strict=True)
+                    nets = nets.to(device).eval()
+                elif os.path.isdir(path):
+                    nets = trainer.restore_nets(path, device)
+                else:
                     continue
-                nets = trainer.restore_nets(path, device)
                 nets.requires_grad_(False)
                 creators[name] = create_gan_shadow_struct(trainer, nets, band_count)
             except Exception as exc:  # a corrupt or foreign checkpoint: reported, left out

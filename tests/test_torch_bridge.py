@@ -12,6 +12,7 @@ import torch
 from hypelcnn_tpu_torch.compat.flax_to_torch import load_flax_variables, variables_to_state_dict
 from hypelcnn_tpu_torch.models.hypelcnn import HYPELCNNModel
 from torch_parity import init_jax
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 CLASSES = 5
 PARAMS = {"filter_count": 32}

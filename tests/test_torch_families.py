@@ -40,6 +40,7 @@ from hypelcnn_tpu_torch.ops.nn import local_response_normalization, squash
 from hypelcnn_tpu_torch.train.checkpoint import checkpoint_steps
 from hypelcnn_tpu_torch.train.trainer import ClassificationTrainer
 from torch_parity import init_jax, jax_eval_logits, numpy_tree, torch_module
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 SPEC = "synthetic://?h=48&w=64&bands=12&classes=5&seed=3"
 CLASSES = 5

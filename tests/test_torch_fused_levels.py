@@ -17,6 +17,7 @@ from hypelcnn_tpu.models.layers import fuse_variables as jax_fuse_variables
 from hypelcnn_tpu_torch.core.registry import get_model_from_name
 from hypelcnn_tpu_torch.models.layers import FusedMultiScaleLevel, fuse_variables, init_parameters
 from torch_parity import init_jax, jax_eval_logits, torch_module
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 CLASSES = 5
 CHANNELS = 13

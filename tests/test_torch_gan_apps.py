@@ -29,6 +29,7 @@ from hypelcnn_tpu_torch.train.checkpoint import (
     save_params,
 )
 from hypelcnn_tpu_torch.utils.tiff_io import imread
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 SPEC = "synthetic://?h=48&w=64&bands=12&classes=5&seed=3"
 TRAIN = ["--loader_name=SyntheticDataLoader", f"--path={SPEC}", "--device=cpu",
@@ -107,9 +108,22 @@ def test_killed_and_resumed_run_equals_an_uninterrupted_one(tmp_path, monkeypatc
     assert all(torch.equal(final_b[k], v) for k, v in final_a.items())
 
 
-def test_opt_search_is_not_ported_and_a_flag_file_is_merged(tmp_path):
-    with pytest.raises(NotImplementedError, match="A14"):
-        _train(tmp_path / "opt", "--step=2", f"--flag_config_file_opt={tmp_path / 'x.json'}")
+def test_opt_search_is_not_ported_and_a_flag_file_is_merged(tmp_path, monkeypatch):
+    """The search mode (ported since this test's name was given): one trial
+    of a space over ``gan_type`` runs in the working directory's study; and a
+    flag file's keys are laid over the flags."""
+    monkeypatch.chdir(tmp_path)
+    space = tmp_path / "x.json"
+    space.write_text(json.dumps({"gan_type": ["gan_x2y"], "identity_loss_weight":
+                                 {"min": 0.1, "max": 2.0}}))
+    study = _train(tmp_path / "opt", "--step=2", f"--flag_config_file_opt={space}",
+                   "--opt_trial_count=1", "--opt_run_count=1")
+    (trial,) = study.trials
+    assert trial["params"]["gan_type"] == "gan_x2y" and math.isfinite(trial["value"])
+    assert 0.1 <= trial["params"]["identity_loss_weight"] <= 2.0
+    assert (tmp_path / "gan_shadow_opt.db").is_file()
+    (opt_dir,) = [p for p in tmp_path.iterdir() if p.name.startswith("opt_")]
+    assert "gan_x2y" in opt_dir.name and checkpoint_steps(str(opt_dir)) == [2]
     flag_file = tmp_path / "flags.json"
     flag_file.write_text(json.dumps({"gan_type": "gan_x2y", "step": 2}))
     _train(tmp_path / "merged", f"--flag_config_file={flag_file}")

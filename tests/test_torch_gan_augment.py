@@ -25,6 +25,7 @@ from hypelcnn_tpu_torch.data.loaders.synthetic import SyntheticDataLoader
 from hypelcnn_tpu_torch.gan import shadow_ops
 from hypelcnn_tpu_torch.gan.wrapper_registry import get_trainer_dict
 from hypelcnn_tpu_torch.train.checkpoint import checkpoint_steps, save_params
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 BANDS = 12
 SPEC = f"synthetic://?h=48&w=64&bands={BANDS}&classes=5&seed=3"
@@ -153,8 +154,10 @@ def test_draw_streams_are_unchanged_with_shadow_augmentation_off():
 
 
 def test_shadow_creators_restore_declared_snapshots(gan_weights, tmp_path, capsys):
-    """``simple``; a GAN snapshot at its declared path; a TF checkpoint and a
-    corrupt snapshot are reported and left out."""
+    """``simple``; a GAN snapshot at its declared path; a TF checkpoint
+    directory whose state file names no checkpoint and a corrupt snapshot are
+    reported and left out (a TF checkpoint that reads is held in
+    ``test_torch_tf_checkpoint.py``)."""
     _, _, state_dict = gan_weights
     base = tmp_path / "models"
     save_params(str(base / "shadow_gen_model" / "cycle_gan"), state_dict)
@@ -167,7 +170,7 @@ def test_shadow_creators_restore_declared_snapshots(gan_weights, tmp_path, capsy
     creators = shadow_ops.build_shadow_creators(loader, scene, 1, "cpu")
     assert sorted(creators) == ["cycle_gan", "simple"]
     out = capsys.readouterr().out
-    assert "shadow creator dcl_gan: failed" in out and "A14" in out
+    assert "shadow creator dcl_gan: failed" in out and "no TF checkpoint under" in out
     assert "shadow creator gan_x2y: failed" in out
     x = torch.from_numpy(_patches(4))
     shadowed = creators["cycle_gan"].shadow_fn(x)

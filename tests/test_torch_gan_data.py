@@ -24,6 +24,7 @@ from hypelcnn_tpu_torch.gan import sampling, validation
 from hypelcnn_tpu_torch.gan.wrapper_registry import get_sampling_map
 from hypelcnn_tpu_torch.train.trainer import make_epoch_index_stream
 from hypelcnn_tpu_torch.utils.tiff_io import imwrite
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 SPEC = "synthetic://?h=48&w=64&bands=12&classes=5&seed=3"
 

@@ -8,6 +8,7 @@ import torch
 
 from hypelcnn_tpu_torch.gan.wrapper_registry import get_trainer_dict
 from test_torch_gan_train import CONFIG, MAX_STEPS, _run, five_steps_match_jax
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 
 @pytest.mark.parametrize("family, config", [

@@ -23,6 +23,7 @@ from hypelcnn_tpu_torch.compat.flax_to_torch import variables_to_state_dict
 from hypelcnn_tpu_torch.gan import losses, models
 from hypelcnn_tpu_torch.gan.wrappers.base import GanAdam, Pool, gan_lr_schedule
 from hypelcnn_tpu_torch.models.layers import init_parameters
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 
 def _numpy(tree):

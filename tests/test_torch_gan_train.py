@@ -21,6 +21,7 @@ from hypelcnn_tpu.gan.wrapper_registry import get_trainer_dict as jax_get_traine
 from hypelcnn_tpu_torch.compat.flax_to_torch import variables_to_state_dict
 from hypelcnn_tpu_torch.gan.wrapper_registry import get_trainer_dict
 from hypelcnn_tpu_torch.gan.wrappers.base import POOL_SIZE
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 CONFIG = {"patches": 3, "embedded_feat_size": 2}
 BATCH, STEPS, MAX_STEPS = 8, 5, 8

@@ -16,6 +16,7 @@ from hypelcnn_tpu.ops.nn import scale_in_to_out as jax_scale_in_to_out
 from hypelcnn_tpu_torch.models.hypelcnn import HYPELCNNModel
 from hypelcnn_tpu_torch.ops.nn import leaky_relu, scale_in_to_out
 from torch_parity import init_jax, jax_eval_logits, torch_module
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 CLASSES = 5
 CHANNELS = 13  # 12 bands plus LiDAR

@@ -25,6 +25,7 @@ from hypelcnn_tpu_torch.infer.scene_inference import (
 from hypelcnn_tpu_torch.train.checkpoint import restore_checkpoint, save_checkpoint
 from hypelcnn_tpu_torch.utils.tiff_io import imwrite, read_tags
 from torch_parity import init_jax, torch_module
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 SPEC = "synthetic://?h=48&w=64&bands=12&classes=5&seed=3"
 CLASSES = 5

@@ -1,9 +1,10 @@
 """The PyTorch port stands alone: nothing in it, nor in ``chip_smoke.py`` or
 the port's scripts (``scripts/torch_*.py``), imports jax, flax, optax, orbax,
-scikit-learn, the JAX package, or the image libraries the JAX package reads
-through (PIL, imageio, tifffile), none of which the card's machine has;
-matplotlib (which it lacks too) is imported only inside the function that
-draws a plot; and its CLIs run on CUDA unless asked for the CPU."""
+scikit-learn, TensorFlow, the JAX package, or the image libraries the JAX
+package reads through (PIL, imageio, tifffile), none of which the card's
+machine has (the port reads TF checkpoints, records and event files with
+numpy); matplotlib (which it lacks too) is imported only inside the function
+that draws a plot; and its CLIs run on CUDA unless asked for the CPU."""
 
 import ast
 import pathlib
@@ -16,7 +17,7 @@ import torch
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT = ROOT / "hypelcnn_tpu_torch"
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "sklearn", "hypelcnn_tpu",
-             "PIL", "imageio", "tifffile"}
+             "PIL", "imageio", "tifffile", "tensorflow"}
 
 
 def _port_files():

@@ -15,6 +15,7 @@ from hypelcnn_tpu.utils.tiff_io import imwrite as jax_imwrite
 from hypelcnn_tpu_torch.core.registry import get_loader_from_name
 from hypelcnn_tpu_torch.data.loaders.base import LoadingMode
 from hypelcnn_tpu_torch.data.scene import DualResScene, MultiScene
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 
 @pytest.fixture(scope="module")

@@ -10,6 +10,7 @@ from hypelcnn_tpu.data.scene import Scene as JaxScene
 from hypelcnn_tpu_torch.core.registry import get_loader_from_name
 from hypelcnn_tpu_torch.data.loaders.synthetic import SyntheticDataLoader
 from hypelcnn_tpu_torch.data.scene import Scene
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 SPECS = ["synthetic://?h=48&w=64&bands=12&classes=5&seed=3",
          "synthetic://?h=21&w=35&bands=7&classes=4&seed=11&noise=900"]

@@ -47,6 +47,7 @@ from hypelcnn_tpu_torch.train.checkpoint import save_checkpoint
 from hypelcnn_tpu_torch.train.trainer import ClassificationTrainer
 from hypelcnn_tpu_torch.utils.tiff_io import imread
 from torch_parity import numpy_tree
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 CLASSES = 4
 

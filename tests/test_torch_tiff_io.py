@@ -22,6 +22,7 @@ from hypelcnn_tpu_torch.utils.tiff_io import (
     read_tags,
     write_bmp,
 )
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 # (PIL's name, TIFF Compression tag)
 COMPRESSIONS = [("raw", 1), ("tiff_lzw", 5), ("tiff_deflate", 32946),

@@ -28,6 +28,7 @@ from hypelcnn_tpu_torch.data.splitters import (
     stratified_shuffle_split,
 )
 from hypelcnn_tpu_torch.train.trainer import make_epoch_index_stream
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 SPEC = "synthetic://?h=48&w=64&bands=12&classes=5&seed=3"
 
@@ -148,9 +149,20 @@ def test_scene_data_point_matches_jax():
         np.testing.assert_array_equal(ours.get_data_point(x, y), theirs.get_data_point(x, y))
 
 
-def test_record_importer_is_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="A14"):
-        get_importer_from_name("TFRecordImporter").read_data_set(None, "x", None, None, None)
+def test_record_importer_is_not_ported_yet(tmp_path):
+    """Ported since this test's name was given: ``TFRecordImporter`` (an alias
+    of ``RecordImporter``) reads the record writer's patch cache as the JAX
+    importer reads it."""
+    from hypelcnn_tpu_torch.utils.record_writer import write_records
+    np.random.seed(3)
+    cache = write_records("SyntheticDataLoader", SPEC, 0.2, 0.1, 1, str(tmp_path))
+    ours = get_importer_from_name("TFRecordImporter").read_data_set(None, cache, None, None, None)
+    theirs = jax_get_importer("TFRecordImporter").read_data_set(None, cache, None, None, None)
+    assert ours.scene is None and ours.class_count == theirs.class_count == 5
+    for split in ("training", "test", "validation"):
+        np.testing.assert_array_equal(ours.targets(split), theirs.targets(split))
+        np.testing.assert_array_equal(ours.sources[split].device_arrays("cpu").numpy(),
+                                      np.asarray(theirs.sources[split].device_arrays()))
 
 
 # ---- augmentation: JAX's own draws injected, bit-equal ----

@@ -41,6 +41,7 @@ from hypelcnn_tpu_torch.models.hypelcnn import HYPELCNNModel
 from hypelcnn_tpu_torch.train.checkpoint import checkpoint_steps, save_checkpoint
 from hypelcnn_tpu_torch.train.trainer import ClassificationTrainer
 from torch_parity import init_jax, torch_module
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 SPEC = "synthetic://?h=48&w=64&bands=12&classes=5&seed=3"
 CLASSES = 5

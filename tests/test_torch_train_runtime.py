@@ -37,6 +37,7 @@ from hypelcnn_tpu_torch.train.checkpoint import (
 )
 from hypelcnn_tpu_torch.train.optimizer import build_optimizer, build_schedule
 from hypelcnn_tpu_torch.train.state import TrainState
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 SCHEDULE = {"learning_rate": 3e-4, "learning_rate_decay_factor": 0.96,
             "learning_rate_decay_step": 350}

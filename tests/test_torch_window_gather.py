@@ -21,6 +21,7 @@ import torch
 from hypelcnn_tpu.ops.window_gather import gather_patches_pallas, gather_patches_xla
 from hypelcnn_tpu_torch.kernels.window_gather import window_gather_cuda
 from hypelcnn_tpu_torch.ops.window_gather import gather_patches, gather_patches_torch
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 HP, WP, C = 11, 14, 5
 
