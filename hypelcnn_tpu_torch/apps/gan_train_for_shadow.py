@@ -20,13 +20,20 @@ directions (``best_ratio_*.json``), and writes a params snapshot
 ``--augment_data_with_shadow`` read. A log dir that holds a full state is
 resumed from.
 
+Under ``torchrun`` with more than one rank the trainer runs data-parallel
+(``use_mesh``): every rank draws the same global batch (and its
+regularization-support swap) and trains on its rows; ``--batch_size`` must
+divide over the ranks. The chief alone validates, prints and writes
+``best_ratio_*.json``, ``ckpt_params_*``, the full states and ``gan_params``.
+
 ``--flag_config_file_opt=SPACE.json`` (``configs/gan/*_flags_opt.json``)
 runs a hyperparameter search instead: ``--opt_trial_count`` trials of
 ``--opt_run_count`` runs each, every run a session on ``--device`` with the
 space's suggestions laid over the flags, under ``<base_log_path>_<random
 suffix>``. A trial's score is the largest of its runs' mean divergences; the
 study ``gan_shadow_opt`` is kept in ``gan_shadow_opt.db`` in the working
-directory, and a rerun continues it.
+directory, and a rerun continues it. A search runs in one process: under
+more than one rank it raises.
 """
 
 from __future__ import annotations
@@ -59,6 +66,13 @@ from hypelcnn_tpu_torch.gan.sampling import read_hsi_data
 from hypelcnn_tpu_torch.gan.validation import PeerValidator
 from hypelcnn_tpu_torch.gan.wrapper_registry import get_sampling_map, get_trainer_dict
 from hypelcnn_tpu_torch.gan.wrappers.base import GANState, GANTrainerBase
+from hypelcnn_tpu_torch.parallel.distributed import (
+    finalize_distributed,
+    is_chief,
+    join_rank,
+    world_size,
+)
+from hypelcnn_tpu_torch.parallel.mesh import create_mesh
 from hypelcnn_tpu_torch.train.checkpoint import restore_checkpoint, save_checkpoint, save_params
 from hypelcnn_tpu_torch.train.trainer import make_epoch_index_stream
 from hypelcnn_tpu_torch.tune.search import create_study, objective
@@ -150,9 +164,12 @@ def build_step_fn(trainer: GANTrainerBase, normal: torch.Tensor, shadow: torch.T
 
 def run_session(params, base_log_path, device) -> List[float]:
     flags = SimpleNamespace(**params)
-    print("Args:", json.dumps(vars(flags), indent=3, default=str))
+    chief = is_chief()
+    say = print if chief else (lambda *args, **kwargs: None)
+    say("Args:", json.dumps(vars(flags), indent=3, default=str))
     log_dir = f"{base_log_path}_{get_log_suffix(flags)}"
-    os.makedirs(log_dir, exist_ok=True)
+    if chief:
+        os.makedirs(log_dir, exist_ok=True)
 
     neighborhood = 0
     rng = RngPool(DEFAULT_SEED)
@@ -163,10 +180,17 @@ def run_session(params, base_log_path, device) -> List[float]:
 
     normal, shadow = read_hsi_data(loader, data_set, shadow_map,
                                    flags.pairing_method, get_sampling_map())
-    print(f"Pairs: normal={normal.shape} shadow={shadow.shape}")
+    say(f"Pairs: normal={normal.shape} shadow={shadow.shape}")
 
+    mesh = None
+    if world_size() > 1:
+        if flags.batch_size % world_size():
+            raise ValueError(f"--batch_size={flags.batch_size} does not divide over "
+                             f"{world_size()} ranks")
+        mesh = create_mesh()
+        say(f"GAN training data-parallel over {world_size()} ranks")
     band_count = data_set.get_casi_band_count()
-    trainer = get_trainer_dict(vars(flags), band_count, flags.step)[flags.gan_type]
+    trainer = get_trainer_dict(vars(flags), band_count, flags.step, mesh=mesh)[flags.gan_type]
     state = trainer.init_state(device, rng.generator("gan-init", 0, "cpu"))
 
     # one full state per validated iteration is kept
@@ -176,10 +200,11 @@ def run_session(params, base_log_path, device) -> List[float]:
     if restored is not None and int(restored["step"]) > 0:
         state.restore(restored)
         resume_step = min(state.step, flags.step)
-        print(f"Resuming GAN training from checkpoint at step {resume_step}")
+        say(f"Resuming GAN training from checkpoint at step {resume_step}")
 
     validator = PeerValidator(loader, data_set, shadow_map, shadow_ratio,
-                              neighborhood, flags.validation_sample_count, log_dir)
+                              neighborhood, flags.validation_sample_count, log_dir) \
+        if chief else None
 
     def to_device(array):
         return torch.from_numpy(np.ascontiguousarray(array)).to(device)
@@ -201,15 +226,21 @@ def run_session(params, base_log_path, device) -> List[float]:
         n = min(cadence, total_steps - start)
         losses = [step_fn(state, step) for step in range(start, start + n)]
         start += n
-        print(f"step {start}: generator_loss={float(losses[-1]):.4f} "
-              f"({start / (time.time() - t0):.1f} steps/s avg)")
+        say(f"step {start}: generator_loss={float(losses[-1]):.4f} "
+            f"({start / (time.time() - t0):.1f} steps/s avg)")
 
-        validator.run(trainer.host_translator(state.nets, True),
-                      trainer.host_translator(state.nets, False), start, plot=True)
-        save_params(os.path.join(log_dir, f"ckpt_params_{start}"), state.nets.state_dict())
-        save_checkpoint(log_dir, max_to_keep=keep, **state.checkpoint())
+        if chief:
+            validator.run(trainer.host_translator(state.nets, True),
+                          trainer.host_translator(state.nets, False), start, plot=True)
+            save_params(os.path.join(log_dir, f"ckpt_params_{start}"), state.nets.state_dict())
+            save_checkpoint(log_dir, max_to_keep=keep, **state.checkpoint())
+        if mesh is not None:
+            mesh.barrier()  # no rank reads a checkpoint before it exists
 
-    save_params(os.path.join(log_dir, "gan_params"), state.nets.state_dict())
+    if chief:
+        save_params(os.path.join(log_dir, "gan_params"), state.nets.state_dict())
+    else:
+        return [float("nan"), float("nan")]
 
     best_upper = validator.get_best_upper_div()
     best_mean = validator.get_best_mean_div()
@@ -229,11 +260,14 @@ def main(argv=None):
     add_parse_cmds_for_app(parser)
     add_parse_cmds_for_opt(parser)
     flags, _ = parser.parse_known_args(argv)
-    device = resolve_device(flags.device)
+    device = join_rank(resolve_device(flags.device))
 
     if flags.flag_config_file:
         flags = merge_flag_config_json(flags, flags.flag_config_file)
     if flags.flag_config_file_opt:
+        if world_size() > 1:
+            raise ValueError("search mode (--flag_config_file_opt) runs in one process; under "
+                             f"{world_size()} ranks it is not ported (ROADMAP.md)")
         with open(flags.flag_config_file_opt, "r", encoding="utf-8") as fid:
             params_from_json_opt = json.load(fid)
         print("Running on hyper parameter optimization mode")
@@ -246,12 +280,15 @@ def main(argv=None):
                              storage="sqlite:///gan_shadow_opt.db")
         study.optimize(objective_func, n_trials=flags.opt_trial_count)
         return study
-    print("Running on training mode")
+    if is_chief():
+        print("Running on training mode")
     divergences = run_session(params=dict(vars(flags)), base_log_path=flags.base_log_path,
                               device=device)
-    print("Output divergence values:", divergences)
+    if is_chief():
+        print("Output divergence values:", divergences)
     return divergences
 
 
 if __name__ == "__main__":
     main()
+    finalize_distributed()

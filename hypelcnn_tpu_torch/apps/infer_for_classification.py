@@ -13,6 +13,10 @@ writes ``result_raw.tif`` and ``result_colorized.tif`` to ``--output_path``:
     python -m hypelcnn_tpu_torch.apps.infer_for_classification \\
         --loader_name=SyntheticDataLoader --path="synthetic://?h=349&w=1905&bands=144&classes=15" \\
         --neighborhood=1 --base_log_path=LOG_DIR --output_path=OUT_DIR --domain=all
+
+Under ``torchrun`` each rank runs on its card and ``--domain all`` splits
+every band's pixels over the ranks; the chief alone prints and writes the
+TIFFs.
 """
 
 from __future__ import annotations
@@ -41,6 +45,8 @@ from hypelcnn_tpu_torch.infer.scene_inference import (
     predict_full_scene,
     predict_targets,
 )
+from hypelcnn_tpu_torch.parallel.distributed import finalize_distributed, is_chief, join_rank
+from hypelcnn_tpu_torch.parallel.mesh import create_mesh
 from hypelcnn_tpu_torch.train.checkpoint import restore_checkpoint
 from hypelcnn_tpu_torch.utils.tiff_io import imwrite
 
@@ -77,7 +83,8 @@ def prediction_process(flags, device):
     module.load_state_dict(checkpoint["state_dict"], strict=True)
     module.to(device)
     if flags.domain == "all":
-        return predict_full_scene(module, scene, device=device), color_list
+        return predict_full_scene(module, scene, device=device,
+                                  mesh=create_mesh()), color_list
     sample_set = loader.load_samples(0.1, 0)
     targets = np.vstack([sample_set.test_targets.astype(np.int32),
                          sample_set.training_targets.astype(np.int32),
@@ -97,7 +104,7 @@ def main(argv=None) -> None:
     add_parse_cmds_for_device(parser)
     add_parse_cmds_for_app(parser)
     flags, _ = parser.parse_known_args(argv)
-    device = resolve_device(flags.device)
+    device = join_rank(resolve_device(flags.device))
 
     start_time = time.time()
     if flags.domain in ("all", "sample"):
@@ -107,6 +114,8 @@ def main(argv=None) -> None:
     else:
         raise ValueError(f"Domain flags does not support value:{flags.domain}")
 
+    if not is_chief():
+        return
     os.makedirs(flags.output_path, exist_ok=True)
     imwrite(os.path.join(flags.output_path, "result_raw.tif"), scene_as_image)
     imwrite(os.path.join(flags.output_path, "result_colorized.tif"),
@@ -116,3 +125,4 @@ def main(argv=None) -> None:
 
 if __name__ == "__main__":
     main()
+    finalize_distributed()

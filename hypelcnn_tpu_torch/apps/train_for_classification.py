@@ -23,6 +23,14 @@ loader's band ratio, or through the frozen generator that
 (``get_shadow_checkpoints``): a params snapshot directory or a TF
 ``model.ckpt-N``.
 
+Under ``torchrun`` (``python -m torch.distributed.run --nproc_per_node=N``)
+each rank trains on its card (``cuda:LOCAL_RANK``) its share of every global
+batch of ``--batch_size``, which N must divide; the chief alone prints and
+writes the log dir, and a checkpoint resumes into any number of ranks::
+
+    python -m torch.distributed.run --nproc_per_node=2 \
+        -m hypelcnn_tpu_torch.apps.train_for_classification ...
+
 ``--flag_config_file_opt=SPACE.json`` runs a hyperparameter search instead:
 ``--opt_trial_count`` trials of ``--opt_run_count`` runs each, every run an
 episode on ``--device`` under ``<base_log_path>_<random suffix>``. A trial's
@@ -31,6 +39,7 @@ over them (not the modelconfig JSON: a model key the space does not pin
 takes the model's default). Its score is the worst run's ``1 -
 validation_accuracy``; the study ``classification_opt`` is kept in
 ``classification_opt.db`` in the working directory, and a rerun continues it.
+A search runs in one process: under more than one rank it raises.
 """
 
 from __future__ import annotations
@@ -57,6 +66,13 @@ from hypelcnn_tpu_torch.core.registry import get_importer_from_name, get_model_f
 from hypelcnn_tpu_torch.core.rng import set_run_seed
 from hypelcnn_tpu_torch.data.augmentation import AugmentationInfo
 from hypelcnn_tpu_torch.gan.shadow_ops import build_shadow_creators
+from hypelcnn_tpu_torch.parallel.distributed import (
+    finalize_distributed,
+    is_chief,
+    join_rank,
+    world_size,
+)
+from hypelcnn_tpu_torch.parallel.mesh import create_mesh
 from hypelcnn_tpu_torch.train.trainer import ClassificationTrainer, TrainingResult
 from hypelcnn_tpu_torch.tune.search import create_study, objective
 from hypelcnn_tpu_torch.utils.text import path_leaf, replace_abbrs
@@ -112,8 +128,10 @@ def get_log_suffix(flags) -> str:
 
 
 def perform_an_episode(flags, algorithm_params, model, base_log_path, device) -> TrainingResult:
-    """One training episode on ``device``."""
-    print("Args:", json.dumps(vars(flags), indent=3))
+    """One training episode on ``device``; on several ranks, this rank's share of it."""
+    chief = is_chief()
+    say = print if chief else (lambda *args, **kwargs: None)
+    say("Args:", json.dumps(vars(flags), indent=3))
     set_run_seed()
 
     data_importer = get_importer_from_name(flags.importer_name)
@@ -143,7 +161,7 @@ def perform_an_episode(flags, algorithm_params, model, base_log_path, device) ->
     batch_size = algorithm_params["batch_size"]
     n_train = data.sample_set.training_targets.shape[0]
     required_steps = flags.step if flags.epoch is None else (n_train * flags.epoch) // batch_size
-    print(f"Steps: {required_steps:d}, Algorithm Params: {algorithm_params}")
+    say(f"Steps: {required_steps:d}, Algorithm Params: {algorithm_params}")
 
     trainer = ClassificationTrainer(
         model=model, class_count=data.class_count, algorithm_params=algorithm_params,
@@ -153,18 +171,19 @@ def perform_an_episode(flags, algorithm_params, model, base_log_path, device) ->
         save_checkpoint_steps=flags.save_checkpoint_steps,
         validation_cadence=flags.validation_steps if flags.perform_validation else None,
         sources=data.sources, data_shape=data.data_shape,
-        log_model_params=bool(flags.log_model_params), device=device)
+        log_model_params=bool(flags.log_model_params), device=device,
+        mesh=create_mesh())
 
     start = time.time()
     result = trainer.fit(required_steps, batch_size,
-                         progress_callback=lambda s, l: print(f"step {s}: loss={l:.4f}"))
-    print(f"Done training for {time.time() - start:.3f} sec")
+                         progress_callback=lambda s, l: say(f"step {s}: loss={l:.4f}"))
+    say(f"Done training for {time.time() - start:.3f} sec")
 
     if flags.perform_validation:
-        print(f"Validation accuracy={result.validation_accuracy:g}, "
+        say(f"Validation accuracy={result.validation_accuracy:g}, "
               f"Testing accuracy={result.test_accuracy:g}, loss={result.loss:.2f}")
     else:
-        print(f"Testing accuracy={result.test_accuracy:g}, loss={result.loss:.2f}")
+        say(f"Testing accuracy={result.test_accuracy:g}, loss={result.loss:.2f}")
     return result
 
 
@@ -181,10 +200,13 @@ def main(argv=None):
     add_parse_cmds_for_app(parser)
     add_parse_cmds_for_opt(parser)
     flags, _ = parser.parse_known_args(argv)
-    device = resolve_device(flags.device)
+    device = join_rank(resolve_device(flags.device))
 
     nn_model = get_model_from_name(flags.model_name)
     if flags.flag_config_file_opt:
+        if world_size() > 1:
+            raise ValueError("search mode (--flag_config_file_opt) runs in one process; under "
+                             f"{world_size()} ranks it is not ported (ROADMAP.md)")
         with open(flags.flag_config_file_opt, "r", encoding="utf-8") as fid:
             params_from_json_opt = json.load(fid)
         print("Running in hyper parameter optimization mode")
@@ -201,7 +223,8 @@ def main(argv=None):
                              storage="sqlite:///classification_opt.db")
         study.optimize(objective_func, n_trials=flags.opt_trial_count)
         return study
-    print("Running on training mode")
+    if is_chief():
+        print("Running on training mode")
     algorithm_params = load_algorithm_params(nn_model.default_params(),
                                              flags.algorithm_param_path)
     if not algorithm_params:
@@ -213,3 +236,4 @@ def main(argv=None):
 
 if __name__ == "__main__":
     main()
+    finalize_distributed()

@@ -15,13 +15,15 @@ frameworks the same numbers. Kept as in the JAX package:
   example and channel.
 
 An op that is off draws nothing, so the draws of the others do not depend
-on it.
+on it. :func:`draw_augmentations` takes every draw of a batch up front, in
+that order, so that a rank of a data-parallel run can draw over the global
+batch and keep its rows (:func:`select_rows`).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Callable, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -91,20 +93,54 @@ def spectral_batch(patches: torch.Tensor, amount: float,
     return patches + deltas.to(patches.device)
 
 
+def _shadows(info: AugmentationInfo) -> bool:
+    return info.perform_shadow_augmentation and info.shadow_struct is not None
+
+
+def draw_augmentations(info: AugmentationInfo, shape: Sequence[int],
+                       generator: Optional[torch.Generator], device,
+                       dtype: torch.dtype = torch.float32) -> Dict[str, Any]:
+    """The draws of the enabled augmentations for a ``[B, k, k, C]`` batch
+    of ``shape``, taken from ``generator`` in the order the ops take them:
+    ``k`` (rotation), ``u`` (shadow), ``flips`` (reflection), ``deltas``
+    (spectral)."""
+    batch, channels = shape[0], shape[-1]
+    draws: Dict[str, Any] = {}
+    if info.perform_rotation_augmentation:
+        draws["k"] = torch.randint(0, 3, (batch,), generator=generator, device=device)
+    if _shadows(info):
+        draws["u"] = torch.rand((batch,), generator=generator, device=device)
+    if info.perform_reflection_augmentation:
+        draws["flips"] = (torch.rand((batch,), generator=generator, device=device) < 0.5,
+                          torch.rand((batch,), generator=generator, device=device) < 0.5)
+    if info.perform_spectral_augmentation:
+        amount = float(info.perform_spectral_augmentation)
+        draws["deltas"] = torch.rand((batch, 1, 1, channels), generator=generator,
+                                     device=device, dtype=dtype) * amount - amount
+    return draws
+
+
+def select_rows(draws: Dict[str, Any], rows: slice) -> Dict[str, Any]:
+    """The draws of the batch rows ``rows``."""
+    return {key: tuple(v[rows] for v in value) if isinstance(value, tuple) else value[rows]
+            for key, value in draws.items()}
+
+
 def augment_batch(patches: torch.Tensor, info: AugmentationInfo,
                   generator: Optional[torch.Generator] = None,
                   draws: Optional[Dict[str, Any]] = None) -> torch.Tensor:
     """Apply the enabled augmentations in the JAX package's order.
 
-    Draws come from ``generator`` (rotation, then shadow, then reflection,
-    then spectral) unless ``draws`` injects them under the keys ``k``,
-    ``u``, ``flips`` and ``deltas``. Shadow augmentation runs only with a
-    ``shadow_struct``.
+    Draws come from ``generator`` (:func:`draw_augmentations`) unless
+    ``draws`` injects them under the keys ``k``, ``u``, ``flips`` and
+    ``deltas``. Shadow augmentation runs only with a ``shadow_struct``.
     """
-    draws = draws or {}
+    if draws is None:
+        draws = draw_augmentations(info, patches.shape, generator, patches.device,
+                                   patches.dtype)
     if info.perform_rotation_augmentation:
         patches = rotate_batch(patches, generator, k=draws.get("k"))
-    if info.perform_shadow_augmentation and info.shadow_struct is not None:
+    if _shadows(info):
         patches = shadow_batch(patches, info.shadow_struct.shadow_fn,
                                info.augmentation_random_threshold, generator, u=draws.get("u"))
     if info.perform_reflection_augmentation:

@@ -44,16 +44,22 @@ from hypelcnn_tpu_torch.utils.tfrecord_compat import read_reference_tfrecords
 class PatchSource:
     """Patch access for one split: ``gather(device_arrays(device), idx, coords)``
     returns the ``[B, k, k, C]`` windows of the rows ``idx`` at ``coords``.
-    A source whose ``draws_members`` is true draws from the ``generator``
-    passed to ``gather``; the others take none."""
+    A source whose ``draws_members`` is true takes each window's member from
+    ``member`` (:meth:`draw_members`), else draws it from the ``generator``
+    passed to ``gather``; the others take neither."""
 
     draws_members = False
 
     def device_arrays(self, device):
         raise NotImplementedError
 
+    def draw_members(self, arrays, count: int, generator: torch.Generator) -> torch.Tensor:
+        """The ``[count]`` member ids that ``gather`` would draw from ``generator``."""
+        raise NotImplementedError
+
     def gather(self, arrays, idx: torch.Tensor, coords: torch.Tensor,
-               generator: Optional[torch.Generator] = None) -> torch.Tensor:
+               generator: Optional[torch.Generator] = None,
+               member: Optional[torch.Tensor] = None) -> torch.Tensor:
         raise NotImplementedError
 
 
@@ -69,11 +75,15 @@ class ScenePatchSource(PatchSource):
             return self.scene.device_modalities(device)
         return self.scene.device_scene(device)
 
-    def gather(self, arrays, idx, coords, generator=None):
+    def draw_members(self, arrays, count, generator):
+        return torch.randint(0, arrays[1].shape[0], (count,), generator=generator,
+                             device=arrays[1].device)
+
+    def gather(self, arrays, idx, coords, generator=None, member=None):
         """``coords``: contiguous int32 ``[B, 2]`` (x, y) on the scene's device."""
         n = self.scene.neighborhood
         if isinstance(self.scene, MultiScene):
-            return gather_from_multi(arrays, coords, n, generator=generator)
+            return gather_from_multi(arrays, coords, n, member=member, generator=generator)
         if isinstance(self.scene, DualResScene):
             casi, lidar = arrays
             return gather_patches_dual(casi, lidar, coords, n, DualResScene.CASI_SCALE)
@@ -94,7 +104,7 @@ class ArrayPatchSource(PatchSource):
             self._device_patches[device] = patches
         return patches
 
-    def gather(self, arrays, idx, coords, generator=None):
+    def gather(self, arrays, idx, coords, generator=None, member=None):
         return arrays.index_select(0, idx)
 
 

@@ -202,10 +202,16 @@ class ShadowFeatureDiscriminator(nn.Module):
     """Per-spectral-patch dense stacks projecting to an embedding:
     ``[B, bands]`` features -> ``[B, patches, embedded_feature_size]``.
 
+    Each patch's embeddings are divided by the L2 norm of the whole
+    ``[B, E]``; on a mesh of several ranks, of the global batch's (the sum
+    of squares is all-reduced).
+
     The patches are ``band_size // patch_count`` bands wide, from band 0 on;
     where that does not divide the bands, the last patch is narrower and
     there are more patches than ``patch_count``, as in the JAX package.
     """
+
+    mesh = None
 
     def __init__(self, band_size: int, patch_count: int, embedded_feature_size: int):
         super().__init__()
@@ -234,6 +240,8 @@ class ShadowFeatureDiscriminator(nn.Module):
             cur = tf_leaky_relu(torch.baddbmm(biases, cur, weights.transpose(1, 2)), 0.1)
         # x * rsqrt(max(sum(x^2), 1e-12)) over each patch's whole [B, E]; the
         # max keeps the gradient finite at the zero vector
-        cur = cur * torch.rsqrt(torch.clamp(torch.sum(cur * cur, dim=(1, 2), keepdim=True),
-                                            min=1e-12))
+        squares = torch.sum(cur * cur, dim=(1, 2), keepdim=True)
+        if self.mesh is not None and self.mesh.sharded:
+            squares = self.mesh.all_reduce_sum(squares)
+        cur = cur * torch.rsqrt(torch.clamp(squares, min=1e-12))
         return cur.transpose(0, 1)

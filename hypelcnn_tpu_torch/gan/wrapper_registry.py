@@ -1,6 +1,7 @@
 """GAN trainer and pairing-sampler registries (``hypelcnn_tpu/gan/wrapper_registry.py``):
 the seven trainable GAN types and the four samplers, under the same names
-and parameters. A trainer serves training and translation both.
+and parameters. A trainer serves training and translation both; with a
+``mesh`` every trainer trains data-parallel over it (``use_mesh``).
 """
 
 from __future__ import annotations
@@ -28,9 +29,7 @@ def get_sampling_map() -> Dict[str, Any]:
 
 def get_trainer_dict(config: Dict[str, Any], band_count: int, max_steps: int,
                      mesh=None) -> Dict[str, Any]:
-    if mesh is not None:
-        raise NotImplementedError("multi-device GAN training is not ported yet (ROADMAP.md A13)")
-    return {
+    trainers = {
         "cycle_gan": CycleGANTrainer(band_count, config, max_steps),
         "gan_x2y": VanillaGANTrainer(band_count, config, max_steps, swap_inputs=False),
         "gan_y2x": VanillaGANTrainer(band_count, config, max_steps, swap_inputs=True),
@@ -39,3 +38,7 @@ def get_trainer_dict(config: Dict[str, Any], band_count: int, max_steps: int,
         "dcl_gan": DCLGANTrainer(band_count, config, max_steps),
         "dcl_cycle_gan": DCLCycleGANTrainer(band_count, config, max_steps),
     }
+    if mesh is not None:
+        for trainer in trainers.values():
+            trainer.use_mesh(mesh)
+    return trainers

@@ -18,6 +18,15 @@
 - :class:`GANTrainerBase`: ``init_state``, ``train_step`` and the
   translations; :func:`translate_patch` folds ``k x k`` cells into the batch.
 
+Data parallelism (:meth:`GANTrainerBase.use_mesh`, the JAX package's
+``use_mesh``): every rank is given the same global ``(x, y)`` batch and
+keeps its rows; each optimizer averages the ranks' gradients before its
+step, the reported losses are the global means, and a pool holds and swaps
+over the global batch of fakes, which every rank rebuilds by an all-reduce
+of zero-filled rows. The feature discriminator's norm is global
+(``gan/models.py``). The networks, optimizer states and pools stay equal on
+every rank.
+
 Each sub-network's update differentiates only that sub-network's
 parameters (``torch.autograd.grad`` over its own tensors) and holds the
 others constant, as ``jax.value_and_grad`` of one argument does. Random
@@ -36,6 +45,7 @@ import torch
 from torch import nn
 
 from hypelcnn_tpu_torch.models.layers import init_parameters
+from hypelcnn_tpu_torch.parallel.mesh import Mesh, bind_mesh
 from hypelcnn_tpu_torch.train.checkpoint import restore_params
 
 
@@ -206,8 +216,8 @@ class GANTrainerBase:
     A subclass builds its networks (:meth:`build_nets`), names its
     optimizers and the networks each one updates (``self.optimizers``:
     name -> ``(GanAdam, [dotted paths in the nets])``), its pools
-    (``self.pool_names``), runs a step (:meth:`train_step`) and names the
-    generator that translates each way (:meth:`generator_for`).
+    (``self.pool_names``), runs a step on its rows (:meth:`step`) and names
+    the generator that translates each way (:meth:`generator_for`).
     """
 
     pool_names: Tuple[str, ...] = ()
@@ -217,6 +227,15 @@ class GANTrainerBase:
         self.config = dict(config)
         self.impl = "toeplitz" if config.get("fused_generator") else "conv"
         self.optimizers: Dict[str, Tuple[GanAdam, List[str]]] = {}
+        self.mesh: Optional[Mesh] = None
+
+    def use_mesh(self, mesh: Optional[Mesh]) -> "GANTrainerBase":
+        """Train data-parallel over ``mesh`` (states made after this call)."""
+        self.mesh = mesh
+        return self
+
+    def _sharded(self) -> bool:
+        return self.mesh is not None and self.mesh.sharded
 
     def build_nets(self) -> nn.ModuleDict:
         raise NotImplementedError
@@ -231,6 +250,7 @@ class GANTrainerBase:
             init_parameters(nets, generator)
         else:
             nets.load_state_dict(state_dict, strict=True)
+        bind_mesh(nets, self.mesh)
         nets.to(device)
         opt_states = {name: tx.init(self.params(nets, paths))
                       for name, (tx, paths) in self.optimizers.items()}
@@ -249,19 +269,51 @@ class GANTrainerBase:
     def params(nets: nn.Module, paths: Sequence[str]) -> List[torch.Tensor]:
         return [p for path in paths for p in nets.get_submodule(path).parameters()]
 
+    def mean_over_ranks(self, tensors: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+        """Each tensor averaged over the mesh's ranks (one all-reduce); as
+        given on one rank."""
+        return list(tensors) if self.mesh is None else self.mesh.mean(tensors)
+
     def update(self, state: GANState, name: str, loss: torch.Tensor) -> None:
         """One ``name`` optimizer step on ``loss``, differentiated with respect
-        to that optimizer's parameters only."""
+        to that optimizer's parameters only, the gradients averaged over the ranks."""
         tx, paths = self.optimizers[name]
         params = self.params(state.nets, paths)
-        grads = torch.autograd.grad(loss, params)
+        grads = self.mean_over_ranks(torch.autograd.grad(loss, params))
         tx.apply(params, grads, state.opt_states[name])
+
+    def apply_pool(self, state: GANState, name: str, data: torch.Tensor, inputs: torch.Tensor,
+                   generator: Optional[torch.Generator] = None,
+                   draws: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Pool ``name`` over the global batch of ``(data, inputs)``; returns this rank's rows."""
+        pool = state.pools[name]
+        if not self._sharded():
+            return pool.apply(data, inputs, generator, draws)
+        total = data.shape[0] * self.mesh.world_size
+        rows = self.mesh.rows(total)
+        both = self.mesh.gather_rows(torch.stack([data, inputs], dim=1), total, rows)
+        pooled, pooled_inputs = pool.apply(both[:, 0], both[:, 1], generator, draws)
+        return pooled[rows], pooled_inputs[rows]
 
     def train_step(self, state: GANState, x: torch.Tensor, y: torch.Tensor,
                    generator: Optional[torch.Generator] = None,
                    draws: Optional[Dict[str, Any]] = None) -> Dict[str, torch.Tensor]:
-        """One step on the ``[B, 1, 1, bands]`` pairs ``(x, y)``; updates
-        ``state`` in place and returns the losses, on the device, unread."""
+        """One step on the ``[B, 1, 1, bands]`` pairs ``(x, y)`` (on a mesh,
+        the global batch, of which this rank keeps its rows); updates
+        ``state`` in place and returns the losses, means over the global
+        batch, on the device, unread. ``draws`` injects the pools' draws."""
+        if self._sharded():
+            rows = self.mesh.rows(x.shape[0])
+            x, y = x[rows], y[rows]
+        metrics = self.step(state, x, y, generator, draws)
+        names = sorted(metrics)
+        return dict(zip(names, self.mean_over_ranks([metrics[n] for n in names])))
+
+    def step(self, state: GANState, x: torch.Tensor, y: torch.Tensor,
+             generator: Optional[torch.Generator] = None,
+             draws: Optional[Dict[str, Any]] = None) -> Dict[str, torch.Tensor]:
+        """One step on this rank's rows; returns its losses."""
         raise NotImplementedError
 
     def generator_for(self, nets: nn.Module, is_shadow: bool) -> nn.Module:

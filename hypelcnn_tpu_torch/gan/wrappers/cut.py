@@ -99,7 +99,7 @@ class CUTTrainer(GANTrainerBase):
     def build_nets(self) -> nn.ModuleDict:
         return cut_unit(self.band_count, self.config, self.impl)
 
-    def train_step(self, state, x, y, generator=None, draws=None):
+    def step(self, state, x, y, generator=None, draws=None):
         gen_inputs, real_data = (y, x) if self.swap_inputs else (x, y)
         metrics = cut_update(self, state, "", gen_inputs, real_data)
         state.step += 1

@@ -51,7 +51,7 @@ class CycleGANTrainer(GANTrainerBase):
             "disc_x2y": ShadowDiscriminator(self.band_count),
             "disc_y2x": ShadowDiscriminator(self.band_count)})
 
-    def train_step(self, state, x, y, generator=None, draws=None):
+    def step(self, state, x, y, generator=None, draws=None):
         draws = draws or {}
         nets = state.nets
         g_x2y, g_y2x, d_x2y, d_y2x = (nets["gen_x2y"], nets["gen_y2x"], nets["disc_x2y"],
@@ -67,8 +67,8 @@ class CycleGANTrainer(GANTrainerBase):
 
         with torch.no_grad():
             gen_y, gen_x = g_x2y(x), g_y2x(y)
-        pooled_y, _ = state.pools["x2y"].apply(gen_y, x, generator, draws.get("x2y"))
-        pooled_x, _ = state.pools["y2x"].apply(gen_x, y, generator, draws.get("y2x"))
+        pooled_y, _ = self.apply_pool(state, "x2y", gen_y, x, generator, draws.get("x2y"))
+        pooled_x, _ = self.apply_pool(state, "y2x", gen_x, y, generator, draws.get("y2x"))
         d_loss = (least_squares_discriminator_loss(d_x2y(y, x), d_x2y(pooled_y, x))
                   + least_squares_discriminator_loss(d_y2x(x, y), d_y2x(pooled_x, y))
                   + l2_regularization([d_x2y, d_y2x], self.disc_reg_scale, exclude=("fc3",)))

@@ -39,7 +39,7 @@ class DCLGANTrainer(GANTrainerBase):
         return nn.ModuleDict({unit: cut_unit(self.band_count, self.config, self.impl)
                               for unit in ("x2y", "y2x")})
 
-    def train_step(self, state, x, y, generator=None, draws=None):
+    def step(self, state, x, y, generator=None, draws=None):
         m_x2y = cut_update(self, state, "x2y.", x, y)
         m_y2x = cut_update(self, state, "y2x.", y, x)
         metrics = {f"x2y_{k}": v for k, v in m_x2y.items()}
@@ -65,8 +65,8 @@ class DCLCycleGANTrainer(DCLGANTrainer):
                     GanAdam(config.get("generator_lr", 2e-4), max_steps, t_stride=2, t_phase=1),
                     [f"{unit}.gen"])
 
-    def train_step(self, state, x, y, generator=None, draws=None):
-        metrics = super().train_step(state, x, y, generator, draws)
+    def step(self, state, x, y, generator=None, draws=None):
+        metrics = super().step(state, x, y, generator, draws)
         if not self.apply_cycle_loss_fix:
             return metrics
         g_x2y, g_y2x = state.nets["x2y"]["gen"], state.nets["y2x"]["gen"]
@@ -75,7 +75,7 @@ class DCLCycleGANTrainer(DCLGANTrainer):
         # one backward over both generators, then each applies its own part
         names = ("x2y.cycle_gen", "y2x.cycle_gen")
         params = [self.params(state.nets, self.optimizers[name][1]) for name in names]
-        grads = torch.autograd.grad(c_loss, params[0] + params[1])
+        grads = self.mean_over_ranks(torch.autograd.grad(c_loss, params[0] + params[1]))
         split = len(params[0])
         for name, ps, gs in zip(names, params, (grads[:split], grads[split:])):
             self.optimizers[name][0].apply(ps, gs, state.opt_states[name])

@@ -39,7 +39,7 @@ class VanillaGANTrainer(GANTrainerBase):
         return nn.ModuleDict({"generator": ShadowGenerator(self.band_count, self.impl),
                               "discriminator": ShadowDiscriminator(self.band_count)})
 
-    def train_step(self, state, x, y, generator=None, draws=None):
+    def step(self, state, x, y, generator=None, draws=None):
         gen, disc = state.nets["generator"], state.nets["discriminator"]
         gen_inputs, real_data = (y, x) if self.swap_inputs else (x, y)
 
@@ -48,8 +48,8 @@ class VanillaGANTrainer(GANTrainerBase):
 
         with torch.no_grad():
             gen_data = gen(gen_inputs)
-        pooled_data, pooled_inputs = state.pools["pool"].apply(
-            gen_data, gen_inputs, generator, (draws or {}).get("pool"))
+        pooled_data, pooled_inputs = self.apply_pool(
+            state, "pool", gen_data, gen_inputs, generator, (draws or {}).get("pool"))
         d_loss = (wasserstein_discriminator_loss(disc(real_data, gen_inputs),
                                                  disc(pooled_data, pooled_inputs))
                   + l2_regularization([disc], self.disc_reg_scale, exclude=("fc3",)))

@@ -9,14 +9,25 @@ finished ``uint8`` class map comes back to the host.
 A ``MultiScene`` is swept through its member 0, as in the JAX package. A
 ``DualResScene`` has no fused device scene, so both functions raise on one
 (``DualResScene.device_scene``): the JAX package cannot sweep one either.
+
+With a :class:`~hypelcnn_tpu_torch.parallel.mesh.Mesh` of several ranks
+each band's pixels are split over the ranks, each rank gathers and
+classifies its slice, and the class map is the sum over the ranks of a
+zero-filled int map in which each rank wrote its own pixels (exact: each
+pixel has one writer). The model's batch-coupled layers (CAP) reduce over
+the whole band, so the map is the one-rank map.
 """
 
 from __future__ import annotations
+
+import contextlib
+from typing import Optional
 
 import numpy as np
 import torch
 
 from hypelcnn_tpu_torch.ops.window_gather import gather_patches
+from hypelcnn_tpu_torch.parallel.mesh import Mesh, bound_mesh
 
 INVALID_TARGET_VALUE = 255
 
@@ -48,7 +59,7 @@ def predict_targets(module, scene, targets_xy: np.ndarray, device,
 
 
 def predict_full_scene(module, scene, batch_rows: int = 16, device="cuda",
-                       gather=gather_patches) -> np.ndarray:
+                       gather=gather_patches, mesh: Optional[Mesh] = None) -> np.ndarray:
     """Classify every pixel; returns an ``[H, W]`` uint8 class map.
 
     ``module`` must already be on ``device``. Bands hold ``batch_rows`` full
@@ -57,29 +68,45 @@ def predict_full_scene(module, scene, batch_rows: int = 16, device="cuda",
     shorter than a band is swept from row 0, the rows past its end reading
     the clamped edge. ``gather`` is the window gather; the default launches
     the CUDA kernel on a CUDA scene, and ``gather_patches_torch`` gives the
-    plain reference on the same device.
+    plain reference on the same device. ``mesh`` splits each band's pixels
+    over its ranks; every rank returns the whole map.
     """
     device = torch.device(device)
     height, width = scene.get_scene_shape()
     k = 2 * scene.neighborhood + 1
     scene_dev = scene.device_scene(device)
+    ranks = mesh if mesh is not None else Mesh()
 
     rows = torch.arange(batch_rows, device=device, dtype=torch.int32)
     cols = torch.arange(width, device=device, dtype=torch.int32)
     band = torch.stack([cols.repeat(batch_rows), rows.repeat_interleave(width)], dim=1)
+    share = ranks.split(band.shape[0])
+    band = band[share]
     y_step = torch.tensor([0, 1], dtype=torch.int32, device=device)
-    result = torch.empty((max(height, batch_rows), width), dtype=torch.uint8, device=device)
+    # a rank writes its pixels of a zero-filled map, summed over the ranks at the end
+    result = torch.zeros((max(height, batch_rows), width), dtype=torch.int32, device=device)
     n_bands = (height + batch_rows - 1) // batch_rows
 
     module.eval()
-    with torch.inference_mode():
+    with torch.inference_mode(), bound_mesh(module, mesh) if mesh is not None \
+            else contextlib.nullcontext():
         for index in range(n_bands):
             rs = min(index * batch_rows, height - batch_rows) if height >= batch_rows else 0
             coords = band.add(y_step, alpha=rs)
-            logits = module(gather(scene_dev, coords, k)).y_conv
-            result[rs:rs + batch_rows] = torch.argmax(logits, dim=1).to(torch.uint8).view(
-                batch_rows, width)
-    return result[:height].cpu().numpy()
+            preds = torch.argmax(module(gather(scene_dev, coords, k)).y_conv, dim=1)
+            block = result[rs:rs + batch_rows]
+            block.zero_()  # the last band's pixels may have had another owner before
+            block.view(-1)[share] = preds.to(torch.int32)
+    return ranks.all_reduce_(result)[:height].to(torch.uint8).cpu().numpy()
+
+
+def predict_full_scene_scan(module, scene, batch_rows: int = 16, device="cuda",
+                            gather=gather_patches, mesh: Optional[Mesh] = None) -> np.ndarray:
+    """:func:`predict_full_scene` under the JAX package's name for its
+    one-dispatch sweep (``lax.scan`` over the bands, which saves TPU
+    dispatches). The port runs the same band loop: on the card a band's
+    launches already keep the device busy."""
+    return predict_full_scene(module, scene, batch_rows, device, gather, mesh)
 
 
 def create_colored_image(target_image: np.ndarray, color_list: np.ndarray) -> np.ndarray:

@@ -14,7 +14,8 @@
   axis.
 - ``iter_routing`` rounds of dynamic routing: softmax coupling over the
   classes, the mean-of-squares ``squash``, and agreement logits summed over
-  the whole batch, shared by every window of it.
+  the whole batch, shared by every window of it (on a mesh of several
+  ranks, over the global batch: the agreement is all-reduced each round).
 - Class scores are the digit capsules' L2 norms. In training with labels a
   decoder (512 and 1,024 leaky-ReLU units, then a sigmoid to ``k*k*C``)
   reconstructs the input from the label's capsule; the loss is cross-entropy
@@ -42,7 +43,7 @@ from hypelcnn_tpu_torch.models.base import (
     reconstruction_loss,
     softmax_cross_entropy,
 )
-from hypelcnn_tpu_torch.models.layers import SlimConv, SlimDense
+from hypelcnn_tpu_torch.models.layers import SlimConv, SlimDense, compute_dtype
 from hypelcnn_tpu_torch.ops.nn import leaky_relu, squash
 
 DEFAULT_PARAMS: Dict[str, Any] = {
@@ -66,11 +67,12 @@ DEFAULT_PARAMS: Dict[str, Any] = {
 
 
 class CAPModule(nn.Module):
+    mesh = None
+
     def __init__(self, class_count: int, params_dict: Dict[str, Any], data_shape: Sequence[int]):
         super().__init__()
         p = params_dict
-        if p.get("compute_dtype", "float32") != "float32":
-            raise NotImplementedError("the port computes CAP in float32 only")
+        compute_dtype(p)  # accepted and unused: CAP computes in float32, as in JAX
         patch, patch_w, in_channels = data_shape
         # the reference's quirk: the primary capsules' size is read from the digit key
         self.pco = p["digit_capsule_output_space"]
@@ -131,6 +133,8 @@ class CAPModule(nn.Module):
             v = squash(s, dim=1)
             if round_ + 1 < self.iter_routing:  # the last round's agreement is unused
                 agreement = torch.bmm(by_class, v.view(j, c * batch, 1)).squeeze(2)
+                if self.mesh is not None and self.mesh.sharded:
+                    agreement = self.mesh.all_reduce_sum(agreement)
                 b_ij = b_ij + agreement.t()
 
         y_conv = torch.linalg.vector_norm(v, dim=1).t()  # [B, J]

@@ -13,6 +13,10 @@ probability, so dropout is off at ``drop_out_ratio = 1.0``.
 
 The public forward takes NHWC, as the JAX module does; inside, activations
 are NCHW. The flatten before ``fc`` is in HWC order, as in JAX.
+
+``compute_dtype: "bfloat16"`` runs the convolutions, LRN and dropout in
+bfloat16; ``fc``, which the JAX module builds without a dtype, computes in
+float32 from the bfloat16 features, and the logits are float32.
 """
 
 from __future__ import annotations
@@ -24,7 +28,7 @@ from torch import nn
 
 from hypelcnn_tpu_torch.core.registry import register_model
 from hypelcnn_tpu_torch.models.base import ModelOutput, NNModel, softmax_cross_entropy
-from hypelcnn_tpu_torch.models.layers import Dropout, SlimConv, SlimDense
+from hypelcnn_tpu_torch.models.layers import Dropout, SlimConv, SlimDense, compute_dtype
 from hypelcnn_tpu_torch.ops.nn import local_response_normalization
 
 DEFAULT_PARAMS: Dict[str, Any] = {
@@ -44,17 +48,16 @@ class CONCNNModule(nn.Module):
     def __init__(self, class_count: int, params_dict: Dict[str, Any], data_shape: Sequence[int]):
         super().__init__()
         p = params_dict
-        if p.get("compute_dtype", "float32") != "float32":
-            raise NotImplementedError("the port computes CONCNN in float32 only")
+        self.dtype = dtype = compute_dtype(p)
         patch, patch_w, in_channels = data_shape
         f0 = p["filter_count"]
         f1 = 3 * f0
-        self.conv0_1x1 = SlimConv(in_channels, f0, 1)
-        self.conv0_3x3 = SlimConv(in_channels, f0, 3)
-        self.conv0_5x5 = SlimConv(in_channels, f0, 5)
+        self.conv0_1x1 = SlimConv(in_channels, f0, 1, dtype=dtype)
+        self.conv0_3x3 = SlimConv(in_channels, f0, 3, dtype=dtype)
+        self.conv0_5x5 = SlimConv(in_channels, f0, 5, dtype=dtype)
         for name in ("conv11", "conv12", "conv13", "conv21", "conv22", "conv31", "conv32",
                      "conv33"):
-            self.add_module(name, SlimConv(f1, f1, 1))
+            self.add_module(name, SlimConv(f1, f1, 1, dtype=dtype))
         self.dropout = Dropout(1.0 - p["drop_out_ratio"])
         self.fc = SlimDense(patch * patch_w * f1, class_count, activation=None)
 
@@ -62,7 +65,7 @@ class CONCNNModule(nn.Module):
                 dropout_generator: Optional[torch.Generator] = None) -> ModelOutput:
         """``x``: NHWC float32 patches ``[B, k, k, C]``; ``dropout_generator``
         draws the dropout masks in train mode."""
-        net = x.permute(0, 3, 1, 2)
+        net = x.to(self.dtype).permute(0, 3, 1, 2)
         net0 = local_response_normalization(torch.cat(
             [self.conv0_1x1(net), self.conv0_3x3(net), self.conv0_5x5(net)], dim=1))
         net11 = local_response_normalization(self.conv11(net0))

@@ -14,6 +14,10 @@
 
 Dropout drops with rate ``1 - drop_out_ratio`` (the reference's keep-prob
 quirk, kept by the JAX package): it is off at ``drop_out_ratio = 1.0``.
+
+``compute_dtype: "bfloat16"`` runs both branches' convolutions in bfloat16;
+the FC head, which the JAX module builds without a dtype, computes in
+float32 from the bfloat16 features, and the logits are float32.
 """
 
 from __future__ import annotations
@@ -31,6 +35,7 @@ from hypelcnn_tpu_torch.models.layers import (
     FusedMultiScaleLevel,
     SlimConv,
     SlimDense,
+    compute_dtype,
     level_kernel_sizes,
     multi_scale_level,
 )
@@ -56,8 +61,7 @@ class DUALCNNModule(nn.Module):
     def __init__(self, class_count: int, params_dict: Dict[str, Any], data_shape: Sequence[int]):
         super().__init__()
         p = params_dict
-        if p.get("compute_dtype", "float32") != "float32":
-            raise NotImplementedError("the port computes DUALCNN in float32 only")
+        self.dtype = compute_dtype(p)
         patch, patch_w, in_channels = data_shape
         if patch != patch_w:
             raise ValueError(f"DUALCNN takes square patches, got {list(data_shape)}")
@@ -89,15 +93,17 @@ class DUALCNNModule(nn.Module):
         kernel_sizes = level_kernel_sizes(patch)
         for i, feat in enumerate(filters, start=1):
             if self.fuse:
-                branches = [FusedMultiScaleLevel(width, feat, patch, activation=self.act)]
+                branches = [FusedMultiScaleLevel(width, feat, patch, activation=self.act,
+                                                 dtype=self.dtype)]
                 self.add_module(f"{prefix}level{i}_fused", branches[0])
             else:
                 branches = []
                 for k in kernel_sizes:
-                    branches.append(SlimConv(width, feat, k, activation=self.act))
+                    branches.append(SlimConv(width, feat, k, activation=self.act,
+                                             dtype=self.dtype))
                     self.add_module(f"{prefix}level{i}_conv{k}x{k}", branches[-1])
             width = feat * len(kernel_sizes)
-            connector = SlimConv(width, width, 1, activation=self.act)
+            connector = SlimConv(width, width, 1, activation=self.act, dtype=self.dtype)
             self.add_module(f"{prefix}connector_conv{i}", connector)
             levels.append((branches, connector))
         return levels
@@ -112,6 +118,7 @@ class DUALCNNModule(nn.Module):
                 dropout_generator: Optional[torch.Generator] = None) -> ModelOutput:
         """``x``: NHWC float32 patches ``[B, k, k, C]``; ``dropout_generator``
         draws the dropout masks in train mode."""
+        x = x.to(self.dtype)
         hsi, lidar = x[..., :-1], x[..., -1:]
         d = self.diff
         if (hsi.shape[1] > 1 or hsi.shape[2] > 1) and d > 0:

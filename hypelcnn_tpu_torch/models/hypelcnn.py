@@ -12,6 +12,10 @@
 - image-reconstruction heads ``image_gen_net_1..4`` that run only in train
   mode. They are built always, because a trained checkpoint holds them.
 
+``compute_dtype: "bfloat16"`` casts the patches once at entry and computes
+every layer in bfloat16, as the JAX module does; parameters, batch-norm
+statistics, the logits and the reconstruction stay float32.
+
 The public forward takes and returns NHWC, as the JAX module does; inside,
 activations are NCHW views for ``nn.Conv2d``. The flatten before the FC
 pyramid is in HWC order, as in JAX (an NCHW flatten would permute ``fc_0``).
@@ -40,6 +44,7 @@ from hypelcnn_tpu_torch.models.layers import (
     FusedMultiScaleLevel,
     SlimConv,
     SlimDense,
+    compute_dtype,
     level_kernel_sizes,
     multi_scale_level,
 )
@@ -69,8 +74,7 @@ class HYPELCNNModule(nn.Module):
     def __init__(self, class_count: int, params_dict: Dict[str, Any], data_shape: Sequence[int]):
         super().__init__()
         p = params_dict
-        if p.get("compute_dtype", "float32") != "float32":
-            raise NotImplementedError("the port computes HYPELCNN in float32 only")
+        self.dtype = dtype = compute_dtype(p)
         patch, patch_w, in_channels = data_shape
         if patch != patch_w:
             raise ValueError(f"HYPELCNN takes square patches, got {list(data_shape)}")
@@ -79,11 +83,11 @@ class HYPELCNNModule(nn.Module):
 
         def conv(cin: int, features: int, kernel: int) -> SlimConv:
             return SlimConv(cin, features, kernel, activation=act, use_batch_norm=True,
-                            bn_momentum=p["bn_decay"], kernel_init="he_truncated")
+                            bn_momentum=p["bn_decay"], kernel_init="he_truncated", dtype=dtype)
 
         def dense(cin: int, features: int, activation=act) -> SlimDense:
             return SlimDense(cin, features, activation=activation, use_batch_norm=True,
-                             bn_momentum=p["bn_decay"], kernel_init="he_truncated")
+                             bn_momentum=p["bn_decay"], kernel_init="he_truncated", dtype=dtype)
 
         count = p["spectral_hierarchy_level"]
         filters = p["filter_count"]
@@ -113,7 +117,7 @@ class HYPELCNNModule(nn.Module):
                 # one zero-padded k_max convolution computes the whole level
                 branches = [self._add(f"connector_{index}_fused", FusedMultiScaleLevel(
                     width, feat, patch, activation=act, use_batch_norm=True,
-                    bn_momentum=p["bn_decay"], kernel_init="he_truncated"))]
+                    bn_momentum=p["bn_decay"], kernel_init="he_truncated", dtype=dtype))]
             else:
                 branches = [self._add(f"connector_{index}_conv{k}x{k}", conv(width, feat, k))
                             for k in kernel_sizes]
@@ -162,6 +166,7 @@ class HYPELCNNModule(nn.Module):
                 dropout_generator: Optional[torch.Generator] = None) -> ModelOutput:
         """``x``: NHWC float32 patches ``[B, k, k, C]``; ``dropout_generator``
         draws the dropout masks in train mode."""
+        x = x.to(self.dtype)
         net0 = x.permute(0, 3, 1, 2)
         net1 = self._residual(net0, self._spectral_stack(net0, self.encoder))
         net2 = self._residual(net1, self._spectral_stack(net1, self.decoder))
@@ -171,12 +176,12 @@ class HYPELCNNModule(nn.Module):
         net5 = net4
         for stage in self.fc_stages:
             net5 = self.dropout(stage(net5), dropout_generator)
-        net6 = self.fc_final(net5)
+        net6 = self.fc_final(net5).to(torch.float32)
 
         image_gen = None
         if self.training:
             g = self.image_gen_net_3(self.image_gen_net_2(self.image_gen_net_1(net6)))
-            image_gen = self.image_gen_net_4(g)
+            image_gen = self.image_gen_net_4(g).to(torch.float32)
 
         def nhwc(t):
             return t.permute(0, 2, 3, 1)

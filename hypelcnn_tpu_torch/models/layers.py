@@ -11,10 +11,22 @@ Each layer with weights carries its kernel initializer by name, as the flax
 layers carry theirs: ``"xavier"`` (flax's ``xavier_uniform()``, the slim
 layers' default) or ``"he_truncated"`` (HYPELCNN's). :func:`init_parameters`
 draws every layer's weights from one generator.
+
+``dtype`` is flax's ``dtype=``: with ``torch.bfloat16`` a layer casts its
+input and float32 parameters to bfloat16 and computes there (the bias added
+after the product, rounded as JAX rounds it); with ``None`` it computes in
+the promotion of its input with float32. Parameters stay float32. Batch norm
+takes its moments in float32 and normalizes in its ``dtype``.
+
+Under a :class:`~hypelcnn_tpu_torch.parallel.mesh.Mesh` of more than one
+rank (bound with ``bind_mesh``) batch norm's moments are those of the global
+batch, and dropout draws its mask over the global batch and keeps this
+rank's rows, so that the ranks compute what one process computes.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 import re
 from typing import Callable, Dict, Mapping, Optional, Sequence
@@ -22,6 +34,9 @@ from typing import Callable, Dict, Mapping, Optional, Sequence
 import torch
 from torch import nn
 from torch.nn import functional as F
+
+from hypelcnn_tpu_torch.ops.nn import weak_scalar
+from hypelcnn_tpu_torch.parallel.mesh import Mesh
 
 # the JAX package's he_truncated: variance_scaling(2.0, "fan_in",
 # "truncated_normal"); the stddev of a unit normal truncated to [-2, 2]
@@ -44,6 +59,46 @@ def xavier_(weight: torch.Tensor, generator: Optional[torch.Generator] = None) -
 
 KERNEL_INITS: Dict[str, Callable] = {"xavier": xavier_, "he_truncated": he_truncated_}
 
+COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def compute_dtype(params: Mapping) -> torch.dtype:
+    """The torch dtype of ``params["compute_dtype"]`` (``float32`` by default)."""
+    name = params.get("compute_dtype", "float32")
+    if name not in COMPUTE_DTYPES:
+        raise ValueError(f"compute_dtype must be one of {sorted(COMPUTE_DTYPES)}, got {name!r}")
+    return COMPUTE_DTYPES[name]
+
+
+def _promote(x: torch.Tensor, dtype: Optional[torch.dtype]) -> torch.dtype:
+    """A layer's ``dtype``, or with ``None`` its input's promotion with float32."""
+    return dtype if dtype is not None else torch.promote_types(x.dtype, torch.float32)
+
+
+def _cast_product(op: Callable, x: torch.Tensor, weight: torch.Tensor,
+                  bias: Optional[torch.Tensor], dtype: torch.dtype) -> torch.Tensor:
+    """``op(x, weight) + bias`` with every operand cast to ``dtype``, the bias
+    added after the product as flax adds it."""
+    y = op(x.to(dtype), weight.to(dtype))
+    if bias is None:
+        return y
+    return y + bias.to(dtype).view((1, -1) + (1,) * (y.dim() - 2))
+
+
+@contextlib.contextmanager
+def running_stats_frozen(module: nn.Module):
+    """Every batch norm under ``module`` leaves its running statistics as
+    they are inside: a forward recomputed for the backward pass (``remat``)
+    must not move them a second time."""
+    norms = [layer for layer in module.modules() if isinstance(layer, SlimBatchNorm)]
+    for norm in norms:
+        norm.frozen = True
+    try:
+        yield
+    finally:
+        for norm in norms:
+            norm.frozen = False
+
 
 class SlimBatchNorm(nn.Module):
     """Batch norm with a bias and no scale.
@@ -55,35 +110,57 @@ class SlimBatchNorm(nn.Module):
     With ``always_batch_stats`` (CAP) evaluation normalizes with the batch
     statistics too and leaves the running ones as they are: in the JAX
     package they move only where ``batch_stats`` is mutable, in training.
+    The moments are ``E[x]`` and ``E[x^2] - E[x]^2`` in float32; on a mesh
+    of several ranks, of the sums ``Σx``, ``Σx²`` and the count over them.
     """
 
+    mesh = None
+    frozen = False  # True while running_stats_frozen holds
+
     def __init__(self, features: int, momentum: float = 0.95, epsilon: float = 1e-3,
-                 always_batch_stats: bool = False):
+                 always_batch_stats: bool = False, dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.momentum = momentum
         self.epsilon = epsilon
         self.always_batch_stats = always_batch_stats
+        self.dtype = dtype
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("mean", torch.zeros(features))
         self.register_buffer("var", torch.ones(features))
 
+    def _moments(self, x: torch.Tensor):
+        """(mean, biased variance, count) of ``x`` per channel, in float32."""
+        dims = [0, *range(2, x.dim())]
+        x32 = x.float()
+        if self.mesh is None or not self.mesh.sharded:
+            mean = x32.mean(dims)
+            return mean, (x32 * x32).mean(dims) - mean * mean, x.numel() // x.shape[1]
+        features = x.shape[1]
+        local = torch.cat([x32.sum(dims), (x32 * x32).sum(dims),
+                           x32.new_full((1,), x.numel() // features)])
+        sums = self.mesh.all_reduce_sum(local)
+        count = sums[-1]
+        mean = sums[:features] / count
+        return mean, sums[features:2 * features] / count - mean * mean, count
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         shape = (1, -1) + (1,) * (x.dim() - 2)
         if self.training or self.always_batch_stats:
-            dims = [0, *range(2, x.dim())]
-            mean = x.mean(dims)
-            var = (x * x).mean(dims) - mean * mean
+            mean, var, n = self._moments(x)
         else:
             mean, var = self.mean, self.var
-        if self.training:
+        if self.training and not self.frozen:
             with torch.no_grad():
-                n = x.numel() // x.shape[1]
-                bessel = n / max(n - 1, 1)
+                bessel = n / max(n - 1, 1) if isinstance(n, int) else n / (n - 1).clamp(min=1)
                 m = self.momentum
                 self.mean.mul_(m).add_((1 - m) * mean)
                 self.var.mul_(m).add_((1 - m) * var * bessel)
-        return (x - mean.view(shape)) * torch.rsqrt(var.view(shape) + self.epsilon) \
-            + self.bias.view(shape)
+        dtype = self.dtype or x.dtype
+        var = var.to(dtype).view(shape)
+        # the reciprocal root in float32, rounded once to ``dtype`` as XLA
+        # rounds it: torch's bfloat16 rsqrt on the CPU rounds twice
+        scale = torch.rsqrt((var + weak_scalar(self.epsilon, var)).float()).to(dtype)
+        return (x - mean.to(dtype).view(shape)) * scale + self.bias.to(dtype).view(shape)
 
     @torch.no_grad()
     def init_parameters_(self, generator: Optional[torch.Generator] = None) -> None:
@@ -98,7 +175,7 @@ class SlimConv(nn.Module):
     def __init__(self, in_features: int, features: int, kernel: int,
                  activation: Optional[Callable] = torch.relu, use_batch_norm: bool = False,
                  bn_momentum: float = 0.95, padding: str = "SAME", kernel_init: str = "xavier",
-                 always_batch_stats: bool = False):
+                 always_batch_stats: bool = False, dtype: Optional[torch.dtype] = None):
         super().__init__()
         if padding == "SAME":
             if kernel % 2 != 1:
@@ -111,13 +188,20 @@ class SlimConv(nn.Module):
         self.Conv_0 = nn.Conv2d(in_features, features, kernel, padding=pad,
                                 bias=not use_batch_norm)
         self.BatchNorm_0 = SlimBatchNorm(features, bn_momentum,
-                                         always_batch_stats=always_batch_stats) \
+                                         always_batch_stats=always_batch_stats, dtype=dtype) \
             if use_batch_norm else None
         self.activation = activation
         self.kernel_init = kernel_init
+        self.dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = self.Conv_0(x)
+        dtype = _promote(x, self.dtype)
+        conv = self.Conv_0
+        if dtype == torch.float32:
+            x = conv(x.to(dtype))
+        else:
+            x = _cast_product(lambda a, w: F.conv2d(a, w, padding=conv.padding), x, conv.weight,
+                              conv.bias, dtype)
         if self.BatchNorm_0 is not None:
             x = self.BatchNorm_0(x)
         if self.activation is not None:
@@ -136,15 +220,22 @@ class SlimDense(nn.Module):
 
     def __init__(self, in_features: int, features: int,
                  activation: Optional[Callable] = torch.relu, use_batch_norm: bool = False,
-                 bn_momentum: float = 0.95, kernel_init: str = "xavier"):
+                 bn_momentum: float = 0.95, kernel_init: str = "xavier",
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.Dense_0 = nn.Linear(in_features, features, bias=not use_batch_norm)
-        self.BatchNorm_0 = SlimBatchNorm(features, bn_momentum) if use_batch_norm else None
+        self.BatchNorm_0 = SlimBatchNorm(features, bn_momentum, dtype=dtype) \
+            if use_batch_norm else None
         self.activation = activation
         self.kernel_init = kernel_init
+        self.dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = self.Dense_0(x)
+        dtype = _promote(x, self.dtype)
+        if dtype == torch.float32:
+            x = self.Dense_0(x.to(dtype))
+        else:
+            x = _cast_product(F.linear, x, self.Dense_0.weight, self.Dense_0.bias, dtype)
         if self.BatchNorm_0 is not None:
             x = self.BatchNorm_0(x)
         if self.activation is not None:
@@ -161,8 +252,12 @@ class SlimDense(nn.Module):
 class Dropout(nn.Module):
     """Dropout as flax computes it (``where(keep, x / keep_prob, 0)``, and
     zeros at rate 1), with its mask drawn from an explicit generator, never
-    from torch's global state. In training with a rate strictly between 0
-    and 1, a missing generator is an error."""
+    from torch's global state, in float32 whatever ``x``'s dtype. In
+    training with a rate strictly between 0 and 1, a missing generator is an
+    error. On a mesh of several ranks the mask is drawn over the global
+    batch (this rank's rows times the ranks) and this rank's rows are kept."""
+
+    mesh = None
 
     def __init__(self, rate: float):
         super().__init__()
@@ -176,8 +271,12 @@ class Dropout(nn.Module):
         if generator is None:
             raise ValueError("train-mode dropout needs a generator")
         keep_prob = 1.0 - self.rate
-        keep = torch.rand(x.shape, generator=generator, device=x.device, dtype=x.dtype) < keep_prob
-        return torch.where(keep, x / keep_prob, torch.zeros_like(x))
+        mesh = self.mesh or Mesh()
+        total = x.shape[0] * mesh.world_size
+        u = torch.rand((total, *x.shape[1:]), generator=generator, device=x.device,
+                       dtype=torch.float32)[mesh.rows(total)]
+        keep = u < keep_prob
+        return torch.where(keep, x / weak_scalar(keep_prob, x), torch.zeros_like(x))
 
 
 def multi_scale_level(x: torch.Tensor, convs: Sequence[nn.Module]) -> torch.Tensor:
@@ -205,16 +304,18 @@ class FusedMultiScaleLevel(nn.Module):
 
     def __init__(self, in_features: int, features: int, patch: int,
                  activation: Optional[Callable] = torch.relu, use_batch_norm: bool = False,
-                 bn_momentum: float = 0.95, kernel_init: str = "xavier"):
+                 bn_momentum: float = 0.95, kernel_init: str = "xavier",
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
+        self.dtype = dtype
         self.kernel_sizes = tuple(level_kernel_sizes(patch))
         for k in self.kernel_sizes:
             self.register_parameter(f"conv{k}x{k}_kernel",
                                     nn.Parameter(torch.zeros(features, in_features, k, k)))
             if not use_batch_norm:
                 self.register_parameter(f"conv{k}x{k}_bias", nn.Parameter(torch.zeros(features)))
-        self.BatchNorm_0 = SlimBatchNorm(features * len(self.kernel_sizes), bn_momentum) \
-            if use_batch_norm else None
+        self.BatchNorm_0 = SlimBatchNorm(features * len(self.kernel_sizes), bn_momentum,
+                                         dtype=dtype) if use_batch_norm else None
         self.activation = activation
         self.kernel_init = kernel_init
 
@@ -226,7 +327,12 @@ class FusedMultiScaleLevel(nn.Module):
             kernels.append(F.pad(getattr(self, f"conv{k}x{k}_kernel"), (pad, pad, pad, pad)))
         bias = None if self.BatchNorm_0 is not None else torch.cat(
             [getattr(self, f"conv{k}x{k}_bias") for k in self.kernel_sizes])
-        y = F.conv2d(x, torch.cat(kernels, dim=0), bias, padding=kmax // 2)
+        dtype = _promote(x, self.dtype)
+        if dtype == torch.float32:
+            y = F.conv2d(x.to(dtype), torch.cat(kernels, dim=0), bias, padding=kmax // 2)
+        else:
+            y = _cast_product(lambda a, w: F.conv2d(a, w, padding=kmax // 2), x,
+                              torch.cat(kernels, dim=0), bias, dtype)
         if self.BatchNorm_0 is not None:
             y = self.BatchNorm_0(y)
         if self.activation is not None:

@@ -5,10 +5,18 @@ from __future__ import annotations
 import torch
 
 
+def weak_scalar(value: float, like: torch.Tensor) -> float:
+    """``value`` as JAX applies a Python scalar to ``like``: rounded to its
+    dtype first (a weakly typed constant takes the array's dtype), where
+    torch would compute with the unrounded scalar and round once. Unchanged
+    for float32."""
+    return value if like.dtype == torch.float32 else float(torch.tensor(value, dtype=like.dtype))
+
+
 def leaky_relu(x: torch.Tensor, alpha: float = 0.2) -> torch.Tensor:
     """JAX's convention: ``x`` where ``x >= 0``, so the gradient at 0 is 1
     (``torch.nn.functional.leaky_relu`` gives ``alpha`` there)."""
-    return torch.where(x >= 0, x, alpha * x)
+    return torch.where(x >= 0, x, weak_scalar(alpha, x) * x)
 
 
 def scale_in_to_out(input_data: torch.Tensor, output_data: torch.Tensor, dim: int = 1) -> torch.Tensor:
@@ -47,10 +55,31 @@ def local_response_normalization(x: torch.Tensor, depth_radius: int = 5, bias: f
     window size and pads differently, so it computes another function.
     """
     sq = torch.square(x).movedim(dim, -1)
-    cs = torch.cumsum(torch.nn.functional.pad(sq, (depth_radius + 1, depth_radius)), dim=-1)
+    padded = torch.nn.functional.pad(sq, (depth_radius + 1, depth_radius))
+    cs = torch.cumsum(padded, dim=-1) if x.dtype == torch.float32 else _scan_sum(padded)
     win = 2 * depth_radius + 1
     window_sums = (cs[..., win:] - cs[..., :-win]).movedim(-1, dim)
     return x / torch.pow(bias + alpha * window_sums, beta)
+
+
+def _scan_sum(x: torch.Tensor, block: int = 16) -> torch.Tensor:
+    """The cumulative sum over the last dim as XLA takes a reduced-precision
+    ``jnp.cumsum`` off the TPU, every partial sum rounded to ``x``'s dtype:
+    a running sum within each block of ``block``, then the blocks' running
+    totals added to the next blocks. ``torch.cumsum`` accumulates bfloat16
+    in float32, which rounds differently."""
+    n = x.shape[-1]
+    if n <= block:
+        out, acc = torch.empty_like(x), torch.zeros_like(x[..., 0])
+        for i in range(n):
+            acc = acc + x[..., i]
+            out[..., i] = acc
+        return out
+    blocks = -(-n // block)
+    inner = _scan_sum(torch.nn.functional.pad(x, (0, blocks * block - n))
+                      .reshape(*x.shape[:-1], blocks, block), block)
+    before = torch.nn.functional.pad(_scan_sum(inner[..., -1], block)[..., :-1], (1, 0))
+    return (inner + before.unsqueeze(-1)).reshape(*x.shape[:-1], blocks * block)[..., :n]
 
 
 def squash(s: torch.Tensor, dim: int = -1, eps: float = 1e-9) -> torch.Tensor:

@@ -17,12 +17,31 @@ validation drains. A NaN loss is logged once and does not stop training. An
 existing checkpoint under ``log_dir`` is resumed from.
 
 The JAX trainer groups steps into scanned chunks to save TPU dispatches; the
-port steps one at a time. Single process: the multi-device paths are not
-ported yet.
+port steps one at a time.
+
+Data parallelism (``mesh=``, by default every rank of the process group):
+each rank builds the same global index stream and takes its own rows of
+every step's global batch, so it launches the window gather on its share
+only. Augmentation, dropout and a ``MultiScene``'s members are drawn over
+the global batch from the same generators and each rank keeps its rows, so
+that W ranks compute what one process computes on the same global batch,
+up to the order of float sums. Batch norm's moments and CAP's routing are
+global (``parallel/mesh.py``); each step averages the ranks' gradients and
+losses in one all-reduce. An eval drain pads its batch to a multiple of the
+ranks, each rank drains its share and the int64 confusion is summed. The
+chief alone writes summaries, CSVs, history and checkpoints, and every rank
+waits at a barrier after a save; a checkpoint holds the replicated state and
+the global step, so it resumes into any world size.
+
+``algorithm_params["remat"]`` recomputes the forward pass in the backward
+(``torch.utils.checkpoint``) instead of keeping its activations, as the
+JAX trainer's ``jax.checkpoint`` does; the recomputation moves no batch-norm
+statistic and draws the same dropout masks.
 """
 
 from __future__ import annotations
 
+import contextlib
 import hashlib
 import json
 import math
@@ -32,13 +51,20 @@ from typing import Any, Callable, Dict, NamedTuple, Optional
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint as recompute_in_backward
 
 from hypelcnn_tpu_torch.core.rng import DEFAULT_SEED, RngPool
-from hypelcnn_tpu_torch.data.augmentation import AugmentationInfo, augment_batch
+from hypelcnn_tpu_torch.data.augmentation import (
+    AugmentationInfo,
+    augment_batch,
+    draw_augmentations,
+    select_rows,
+)
 from hypelcnn_tpu_torch.data.importers import ScenePatchSource
 from hypelcnn_tpu_torch.data.loaders.base import SampleSet
 from hypelcnn_tpu_torch.models.base import NNModel
-from hypelcnn_tpu_torch.models.layers import init_parameters
+from hypelcnn_tpu_torch.models.layers import init_parameters, running_stats_frozen
+from hypelcnn_tpu_torch.parallel.mesh import Mesh, bind_mesh, create_mesh, pad_to_multiple
 from hypelcnn_tpu_torch.train.checkpoint import restore_checkpoint, save_checkpoint
 from hypelcnn_tpu_torch.train.metrics import MetricsResult, compute_metrics, confusion_update
 from hypelcnn_tpu_torch.train.optimizer import build_optimizer
@@ -93,7 +119,8 @@ class ClassificationTrainer:
                  sources: Optional[Dict[str, Any]] = None,
                  data_shape: Optional[list] = None,
                  log_model_params: bool = False,
-                 device="cuda"):
+                 device="cuda",
+                 mesh: Optional[Mesh] = None):
         self.model = model
         self.class_count = class_count
         self.algorithm_params = algorithm_params
@@ -112,6 +139,8 @@ class ClassificationTrainer:
         self.validation_cadence = validation_cadence
         self.log_model_params = log_model_params
         self.device = torch.device(device)
+        self.mesh = mesh if mesh is not None else create_mesh()
+        self.remat = bool(algorithm_params.get("remat", False))
 
         self._eval_tables: Dict = {}
         self.history: list = []
@@ -127,6 +156,7 @@ class ClassificationTrainer:
             init_parameters(module, self.rng_pool.generator("init", 0, "cpu"))
         else:
             module.load_state_dict(state_dict, strict=True)
+        bind_mesh(module, self.mesh)
         module.to(self.device).train()
         optimizer, schedule = build_optimizer(self.algorithm_params, module.parameters())
         return TrainState(step=0, module=module, optimizer=optimizer, schedule=schedule)
@@ -154,23 +184,50 @@ class ClassificationTrainer:
             return None
         return self.rng_pool.generator(purpose, step, self.device)
 
+    def _gather(self, source, arrays, idx, coords, purpose: str, step: int,
+                rows: slice, total: int) -> torch.Tensor:
+        """The windows of this rank's rows; a multi-scene source's members are
+        drawn over the global batch."""
+        generator = self._member_generator(source, purpose, step)
+        member = None if generator is None else \
+            source.draw_members(arrays, total, generator)[rows]
+        return source.gather(arrays, idx, coords, member=member)
+
     def train_step(self, state: TrainState, tables: TrainingTables, step: int) -> torch.Tensor:
-        """One optimizer step on the batch of row ``step``; returns the loss,
-        on the device, without reading it."""
+        """One optimizer step on the batch of row ``step``; returns the loss
+        (the global batch's mean), on the device, without reading it."""
         idx = tables.indices[step]
+        total = idx.shape[0]
+        rows = self.mesh.rows(total)
+        idx = idx[rows]
         coords = tables.coords.index_select(0, idx)
         label_ids = tables.labels.index_select(0, idx)
         source = self.sources["training"]
-        patches = source.gather(source.device_arrays(self.device), idx, coords,
-                                self._member_generator(source, "member", step))
-        patches = augment_batch(patches, self.augmentation_info,
-                                generator=self.rng_pool.generator("augment", step, self.device))
+        patches = self._gather(source, source.device_arrays(self.device), idx, coords, "member",
+                               step, rows, total)
+        draws = draw_augmentations(self.augmentation_info, (total, *patches.shape[1:]),
+                                   self.rng_pool.generator("augment", step, self.device),
+                                   patches.device, patches.dtype)
+        patches = augment_batch(patches, self.augmentation_info, draws=select_rows(draws, rows))
         labels = (label_ids.unsqueeze(1) == tables.class_ids).to(torch.float32)
-        out = state.module(patches, labels=labels,
-                           dropout_generator=self.rng_pool.generator("dropout", step, self.device))
+
+        def forward():
+            # the generator is seeded anew, so a recomputation draws the same masks
+            return state.module(patches, labels=labels, dropout_generator=self.rng_pool.generator(
+                "dropout", step, self.device))
+
+        if self.remat:
+            out = recompute_in_backward(forward, use_reentrant=False, context_fn=lambda: (
+                contextlib.nullcontext(), running_stats_frozen(state.module)))
+        else:
+            out = forward()
         loss = torch.mean(self.model.loss(out, labels))
         state.optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        params = [p for p in state.module.parameters() if p.grad is not None]
+        *grads, loss = self.mesh.mean([p.grad for p in params] + [loss.detach()])
+        for param, grad in zip(params, grads):
+            param.grad = grad
         state.apply_gradients()
         return loss.detach()
 
@@ -195,7 +252,8 @@ class ClassificationTrainer:
         if cache_key not in self._eval_tables:
             for key in [k for k in self._eval_tables if k[:2] == (split, batch_size)]:
                 del self._eval_tables[key]
-            eff_batch = min(batch_size, n)
+            # the batch divides over the ranks; a small split shrinks to one batch
+            eff_batch = pad_to_multiple(min(batch_size, n), self.mesh.world_size)
             num_batches = math.ceil(n / eff_batch)
             total = num_batches * eff_batch
             # pad by wrapping to real samples, not zeros: a model whose eval
@@ -210,6 +268,10 @@ class ClassificationTrainer:
                 torch.from_numpy(np.ascontiguousarray(t, dtype=np.int32)).to(self.device)
                 for t in tables)
         idx_d, coords_d, labels_d, mask_d = self._eval_tables[cache_key]
+        total = idx_d.shape[1]
+        rows = self.mesh.rows(total)
+        idx_d, coords_d, labels_d, mask_d = (t[:, rows] for t in (idx_d, coords_d, labels_d,
+                                                                   mask_d))
         source = self.sources[split]
         arrays = source.device_arrays(self.device)
         module = state.module
@@ -220,14 +282,13 @@ class ClassificationTrainer:
                 confusion = torch.zeros((self.class_count, self.class_count), dtype=torch.int64,
                                         device=self.device)
                 for batch in range(idx_d.shape[0]):
-                    patches = source.gather(arrays, idx_d[batch], coords_d[batch],
-                                            self._member_generator(source, f"eval-member-{split}",
-                                                                   batch))
+                    patches = self._gather(source, arrays, idx_d[batch], coords_d[batch],
+                                           f"eval-member-{split}", batch, rows, total)
                     preds = torch.argmax(module(patches).y_conv, dim=1)
                     confusion_update(confusion, labels_d[batch], preds, mask_d[batch])
         finally:
             module.train(was_training)
-        return compute_metrics(confusion.cpu().numpy())
+        return compute_metrics(self.mesh.all_reduce_(confusion).cpu().numpy())
 
     # ---- the training loop ----
 
@@ -238,17 +299,25 @@ class ClassificationTrainer:
         """Train to ``num_steps`` (resuming from ``log_dir``'s latest
         checkpoint when there is one); ``state_dict`` gives the initial weights."""
         state = self.init_state(state_dict)
+        chief = self.mesh.rank == 0
         resume_step = 0
         if self.log_dir and self.save_checkpoint_steps:
+            # every rank reads the chief's file
             restored = restore_checkpoint(self.log_dir)
             if restored is not None and int(restored["step"]) > 0:
                 state.restore(restored)
                 resume_step = min(state.step, num_steps)
-                print(f"Resuming from checkpoint at step {resume_step}")
+                if chief:
+                    print(f"Resuming from checkpoint at step {resume_step}")
+
+        def save() -> None:
+            if chief:
+                save_checkpoint(self.log_dir, **state.checkpoint())
+            self.mesh.barrier()  # no rank reads a checkpoint before it exists
 
         tables = self.training_tables(num_steps, batch_size)
         writer = None
-        if self.log_dir:
+        if self.log_dir and chief:
             writer = SummaryWriter(self.log_dir)
             writer.text("algorithm_params", json.dumps(
                 self.algorithm_params, indent=3, default=str))
@@ -263,7 +332,7 @@ class ClassificationTrainer:
 
             if crossed(log_every, start, end) or end == num_steps:
                 last_loss = float(loss)
-                if math.isnan(last_loss) and not nan_seen:
+                if math.isnan(last_loss) and not nan_seen and chief:
                     nan_seen = True
                     print(f"[nan-guard] loss is NaN at step {end} (continuing)")
                 if progress_callback:
@@ -286,7 +355,7 @@ class ClassificationTrainer:
                 self.history.append({"step": end, "val_oa": val_metrics.overall_accuracy,
                                      "val_aa": val_metrics.mean_per_class_accuracy,
                                      "val_kappa": val_metrics.kappa})
-                if self.log_dir:
+                if self.log_dir and chief:
                     np.savetxt(os.path.join(self.log_dir, f"validation_confusion_{end}.csv"),
                                val_metrics.confusion, fmt="%d", delimiter=",")
                 if writer:
@@ -296,13 +365,13 @@ class ClassificationTrainer:
 
             if self.save_checkpoint_steps and self.log_dir \
                     and crossed(self.save_checkpoint_steps, start, end):
-                save_checkpoint(self.log_dir, **state.checkpoint())
+                save()
 
         if writer:
             writer.close()
         if self.save_checkpoint_steps and self.log_dir:
-            save_checkpoint(self.log_dir, **state.checkpoint())
-        if self.log_dir and self.history:
+            save()
+        if self.log_dir and chief and self.history:
             os.makedirs(self.log_dir, exist_ok=True)
             with open(os.path.join(self.log_dir, "history.jsonl"), "w", encoding="utf-8") as fid:
                 for rec in self.history:

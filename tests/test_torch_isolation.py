@@ -1,5 +1,6 @@
-"""The PyTorch port stands alone: nothing in it, nor in ``chip_smoke.py`` or
-the port's scripts (``scripts/torch_*.py``), imports jax, flax, optax, orbax,
+"""The PyTorch port stands alone: nothing in it, nor in ``chip_smoke.py``,
+the port's scripts (``scripts/torch_*.py``) or the rank worker of its
+multi-process tests (``tests/torch_mp_worker.py``), imports jax, flax, optax, orbax,
 scikit-learn, TensorFlow, the JAX package, or the image libraries the JAX
 package reads through (PIL, imageio, tifffile), none of which the card's
 machine has (the port reads TF checkpoints, records and event files with
@@ -22,7 +23,8 @@ FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "sklearn", "hypelcnn_tpu
 
 def _port_files():
     return (sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
-            + sorted((ROOT / "scripts").glob("torch_*.py")))
+            + sorted((ROOT / "scripts").glob("torch_*.py"))
+            + [ROOT / "tests" / "torch_mp_worker.py"])
 
 
 def _imported_roots(path):

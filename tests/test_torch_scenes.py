@@ -203,10 +203,11 @@ class _InjectedMembers(ScenePatchSource):
         super().__init__(scene)
         self.members = list(members)
 
-    def gather(self, arrays, idx, coords, generator=None):
+    def draw_members(self, arrays, count, generator):
         assert generator is not None  # the trainer asks this source to draw
-        return gather_from_multi(arrays, coords, self.scene.neighborhood,
-                                 member=torch.from_numpy(self.members.pop(0)))
+        members = torch.from_numpy(self.members.pop(0))
+        assert members.shape == (count,)
+        return members
 
 
 def test_multi_scene_training_follows_the_jax_trainer_with_injected_members():
