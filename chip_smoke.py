@@ -54,9 +54,11 @@ published JSON, on the same scene (``family_concnn``: k = 5, batch 10;
   pixels whose two top logits tie to 1e-4, at most 1e-4 of the scene, since
   cuDNN computes other batch sizes with other algorithms; not checked for
   CAP, whose batch statistics and routing depend on the batch);
-- the step time (median of 3 runs of 50 steps after 10 warm-up steps), the
-  sweep time (once, after a warm-up), peak device memory of each, device time by kernel and the
-  idle share over 20 traced steps and one traced sweep, and the sweep's
+- the step time (median of 3 runs of 25 steps after 10 warm-up steps), the
+  sweep time (once, after the infer CLI's sweep of the same shapes; its map
+  equals the plain gather's), peak device memory of each, device time by
+  kernel and the idle share over 10 traced steps and one traced sweep, and
+  the sweep's
   bound, the larger of its float32 FLOP and the bytes it must move (for CAP
   also the traffic of this implementation's prediction vectors).
 
@@ -99,7 +101,7 @@ Then the five GAN phases, on the GRSS2013 layout ``loader_grss2013`` wrote
   ``ckpt_params_125``, ``ckpt_params_250``, ``gan_params`` and 2 full
   states; the saved state restores bit for bit and a rerun to 300 resumes
   at 250. Then the step through the API (median of 3 runs of 50 steps),
-  its launches and idle share over 20 traced steps, the CLI's seconds and
+  its launches and idle share over 10 traced steps, the CLI's seconds and
   peak memory;
 - ``gan_families``: each of the seven families for 10 steps with finite
   losses, its step (median of 3 runs of 5), launches and idle share over 5
@@ -148,7 +150,7 @@ Three phases of the multi-device paths and bfloat16, ``dist_world1`` right
 after ``kernel_vs_plain`` (it needs nothing the other phases make), the
 other two after ``tf_checkpoint``:
 
-- ``dist_world1``: the train CLI at HYPELCNN's full width (batch 48, 200
+- ``dist_world1``: the train CLI at HYPELCNN's full width (batch 48, 100
   steps, no augmentation) in one plain process and under ``torchrun
   --nproc_per_node=1`` on NCCL, both under deterministic algorithms: the
   logged losses and the final weights equal bit for bit, the gather's exact
@@ -177,11 +179,39 @@ other two after ``tf_checkpoint``:
 The ranks are this script again, ``chip_smoke.py --rank-task SPEC.json``,
 which torchrun starts.
 
+Two phases of the offline tooling, after ``bf16`` (the two-rank phase
+shares the card's memory with this process, so it runs before them):
+
+- ``utilities``: the five analysis tools with ``--device=cuda`` and then
+  ``--device=cpu`` on the same inputs, each card result held against the
+  CPU's: ``lidar_matcher`` on the GRSS2013 and GRSS2018 layouts (the
+  corners equal), ``measure_targets_shadow_ratio`` (random pairing) and
+  ``remove_test_targets_from_shadow`` on the GRSS2013 layout (the ratio's
+  moments within 1e-6 relative, the shadow maps equal),
+  ``nn_layer_activation_graph`` on the ``train`` phase's checkpoint (the
+  histograms within 1e-4 of each tap's largest magnitude), and
+  ``reveal_shadow_targets`` on a copy of the GULFPORT layout with no
+  building shadow on its last row or column (the shadow map and GT equal,
+  the corrected HSI within 1e-6); each tool's seconds, and the figures not
+  written for want of matplotlib;
+- ``classic_ml``: ``classic_ml_trainer --fullscene --batch_size=65536
+  --neighborhood=0`` on the GRSS2013-size synthetic scene: the gather's
+  launches exactly by batch size (the training split, the validation split,
+  10 full-scene batches and the last), each batch's windows bit for bit the
+  plain gather's and the full-scene map the plain windows' map, validation
+  OA above chance; the forest grown again on the CPU from the same
+  ``np.random`` state equal node for node, its validation predictions equal;
+  the fit, predict and full-scene seconds. Then ``--hyperparamopt`` (the
+  full 13 x 13 grid) on a 3-class 40 x 80 scene on the card and on the CPU:
+  the same best cell, every cell's score within 0.01.
+
 Then ``fused_levels``: fused and unfused multi-scale levels give the same
 logits on 256 windows at full width, HYPELCNN and DUALCNN, and DUALCNN's
 sweep and step are timed both ways; and the ``kernels`` line gains the k = 5
 band, each family's training step, the GULFPORT and AVON training steps
-(C = 65 and 360) and a single window; the training step's row counts the
+(C = 65 and 360), a single window and the classic-ML CLI's k = 1 shapes
+(its training and validation splits and a full-scene batch); the training
+step's row counts the
 GAN-augmented, search, TF-checkpoint, world-1, resume and bfloat16 runs'
 steps too, and the eval row their drains; three rows give a rank's halves
 of the training step, of an eval batch and of a sweep band (the launch
@@ -217,12 +247,14 @@ import numpy as np
 import torch
 
 from hypelcnn_tpu_torch.apps import (
+    classic_ml_trainer,
     gan_infer_for_shadow,
     gan_infer_image_for_shadow,
     gan_train_for_shadow,
     infer_for_classification,
     train_for_classification,
 )
+from hypelcnn_tpu_torch.classic.forest import RandomForestClassifier
 from hypelcnn_tpu_torch.core.config import load_algorithm_params
 from hypelcnn_tpu_torch.core.platform import resolve_device
 from hypelcnn_tpu_torch.core.registry import get_importer_from_name, get_model_from_name
@@ -258,12 +290,19 @@ from hypelcnn_tpu_torch.train.checkpoint import (
     save_checkpoint,
 )
 from hypelcnn_tpu_torch.train.trainer import ClassificationTrainer, make_epoch_index_stream
-from hypelcnn_tpu_torch.utils import record_writer
+from hypelcnn_tpu_torch.utils import (
+    lidar_matcher,
+    measure_targets_shadow_ratio,
+    nn_layer_activation_graph,
+    record_writer,
+    remove_test_targets_from_shadow,
+    reveal_shadow_targets,
+)
 from hypelcnn_tpu_torch.utils.tf_checkpoint_import import (
     is_tf_checkpoint,
     load_tf_checkpoint_values,
 )
-from hypelcnn_tpu_torch.utils.tiff_io import imread, read_tags
+from hypelcnn_tpu_torch.utils.tiff_io import imread, imwrite, read_tags
 
 ROOT = Path(__file__).resolve().parent
 SOURCES = ["window_gather"]
@@ -304,6 +343,7 @@ FAMILIES = [
     Family("family_cap", "CAPModel", CONFIGS / "alg_param_capn.json", 1, 16, 300, {}),
 ]
 FAMILY_OA = 0.2  # chance is 1/15
+FAMILY_TIMED_STEPS, FAMILY_TRACED_STEPS = 25, 10  # a family's step: 3 timed runs, then traced
 # the loader phases: the train CLI at HYPELCNN's full width on each layout
 LOADER_BATCH, LOADER_STEPS, AVON_STEPS, MIXED_STEPS = 48, 100, 100, 50
 LOADER_TRAIN_RATIO, LOADER_TEST_RATIO = 0.1, 0.05
@@ -311,7 +351,7 @@ MEMBER_DRAWS, DUAL_CHECKS = 10240, 4096
 AVON_SIZE = {"height": 500, "width": 300}  # AVON's size is not published; this is ours
 LOADER_OA = {"GRSS2013DataLoader": 0.5, "GRSS2018DataLoader": 0.5,
              "GULFPORTALTDataLoader": 0.5, "AVONDataLoader": 0.75}  # chance 1/15, 1/20, 1/11, 1/2
-FUSED_PAIRS = 5  # DUALCNN step pairs, unfused against fused
+FUSED_PAIRS = 3  # DUALCNN step pairs, unfused against fused
 # the GAN phases, on the GRSS2013 layout (144 CASI bands)
 GAN_BANDS, GAN_BATCH, GAN_STEPS, GAN_VALIDATION, GAN_RESUME_STEPS = 144, 32, 250, 125, 300
 GAN_TIMED_STEPS, GAN_FAMILY_STEPS, TRANSLATE_CHECKS = 50, 10, 4096
@@ -326,12 +366,24 @@ TF_FIXTURE = ROOT / "tests" / "torch_fixtures" / "tf_cycle_gan_144"
 TF_TRANSLATE_CHECKS = 1024
 PROFILED_STEPS = 10  # profile_train's traced steps
 # the multi-device phases: one rank plainly and on NCCL; two ranks on the one card
-DIST_WORLD1_STEPS, DIST_STEPS, DIST_CHECKPOINT_EVERY, DIST_RESUME_STEPS = 200, 100, 10, 20
+DIST_WORLD1_STEPS, DIST_STEPS, DIST_CHECKPOINT_EVERY, DIST_RESUME_STEPS = 100, 100, 10, 20
 DIST_GAN_STEPS, DIST_CAP_STEPS, DIST_TIMED_STEPS, DIST_PROFILED_STEPS = 30, 20, 10, 3
 # the bfloat16 phase; the sweep's threshold is tests/test_torch_bf16.py's (0.9935
 # measured on the CPU); the card-against-CPU loss limit is twice the largest gap
 # read on the card (4.7e-4, CONCNN's third step)
 BF16_STEPS, BF16_TIMED_STEPS, BF16_SWEEP_AGREEMENT, BF16_CARD_VS_CPU = 100, 30, 0.98, 1e-3
+# the classic-ML phase: the GRSS2013-size scene with noise over the class
+# signatures, so the forest's trees run to ~10k nodes and 28 levels (the
+# default noise separates the classes on one band: 32 nodes a tree); the
+# CLI's full-scene batch; the trees also grown on the CPU to hold the card's
+# against; the grid search's small scene (3 classes, 320 training windows),
+# noisy enough that its best cell scores below 1
+CLASSIC_SPEC = SPEC + "&noise=3000"
+CLASSIC_BATCH = 65536
+CLASSIC_CPU_TREES = 3
+CLASSIC_GRID_SPEC = "synthetic://?h=40&w=80&bands=144&classes=3&noise=6000"
+CLASSIC_GRID_SCORE = 0.01  # a grid cell's score, card against CPU
+HISTOGRAMS_CARD_VS_CPU = 1e-4  # of a tap's largest magnitude, at least 1
 # the gather's launches by batch size in each main-path run (CLI runs), in order
 MAIN_PATH_RUNS: list = []
 
@@ -856,18 +908,23 @@ def phase_family(device, work: Path, family: Family) -> dict:
     # numbers: the steady step and the sweep, each with its peak memory
     trainer = _trainer(data, params, device, _augmentation(), model=family.model)
     state = trainer.init_state()
-    tables = trainer.training_tables(10 + 3 * 50 + 2 * 20, family.batch)
+    tables = trainer.training_tables(10 + 3 * FAMILY_TIMED_STEPS + 2 * FAMILY_TRACED_STEPS,
+                                     family.batch)
     torch.cuda.reset_peak_memory_stats()
     _timed_steps(trainer, state, tables, 0, 10)
-    runs = [_timed_steps(trainer, state, tables, 10 + 50 * i, 50) / 50 for i in range(3)]
+    runs = [_timed_steps(trainer, state, tables, 10 + FAMILY_TIMED_STEPS * i,
+                         FAMILY_TIMED_STEPS) / FAMILY_TIMED_STEPS for i in range(3)]
     step_peak_bytes = torch.cuda.max_memory_allocated()
-    _, step_profile = _steps_profile(trainer, state, tables, 160, 20, top=8)
+    _, step_profile = _steps_profile(trainer, state, tables, 10 + 3 * FAMILY_TIMED_STEPS,
+                                     FAMILY_TRACED_STEPS, top=8)
     torch.cuda.reset_peak_memory_stats()
-    # the warm-up sweep's map is the kernel sweep's
-    check(np.array_equal(predict_full_scene(module, scene, device=device), plain_map),
+    # the infer CLI's sweep warmed the same shapes; the timed sweep's map is
+    # the kernel sweep's
+    swept = []
+    sweep = _timed_sweeps(lambda: swept.append(predict_full_scene(module, scene, device=device)),
+                          runs=1, warm_up=False)
+    check(np.array_equal(swept[0], plain_map),
           f"{family.model}: the kernel sweep's class map differs from the plain gather's")
-    sweep = _timed_sweeps(lambda: predict_full_scene(module, scene, device=device), runs=1,
-                          warm_up=False)
     sweep_peak_bytes = torch.cuda.max_memory_allocated()
     _, sweep_profile = _sweep_profile(device, scene, module, top=8,
                                       untraced_ms=sweep[0] * 1e3)
@@ -1326,7 +1383,7 @@ def _gan_steps_time(step_fn, state, start: int, count: int) -> float:
     return time.perf_counter() - begin
 
 
-def _gan_step_record(step_fn, state, start: int, count: int, traced_steps: int = 20) -> dict:
+def _gan_step_record(step_fn, state, start: int, count: int, traced_steps: int = 10) -> dict:
     """The steady step (median of 3 runs of ``count`` steps after
     ``traced_steps`` warm-up steps), then device time, launches and idle
     share over ``traced_steps`` traced steps (``3 * count + 3 *
@@ -1938,6 +1995,210 @@ def phase_tf_checkpoint(device, work: Path, root: Path, augmented: dict) -> dict
 # the spec.
 
 
+def _card_and_cpu(device, main, args: list, out: Path, record: dict, name: str) -> dict:
+    """A tool's ``main`` on the card (``device``), then on the CPU, each into
+    its own output directory under ``out`` and after the same ``np.random``
+    seed; results under ``card`` and ``cpu``. ``record`` collects the seconds
+    of each and the card run's lines naming a figure it did not write (the
+    card's machine has no matplotlib)."""
+    results = {}
+    for side, where in (("card", device.type), ("cpu", "cpu")):
+        target = out / f"{name}_{side}"
+        target.mkdir(parents=True)
+        np.random.seed(SEED)
+        start = time.perf_counter()
+        results[side], printed = _run_quiet(main, [*args, f"--output_path={target}",
+                                                   f"--device={where}"])
+        record["seconds"][f"{name}_{side}"] = time.perf_counter() - start
+        results[f"{side}_dir"] = target
+        if side == "card":
+            record["unwritten"] += [line for line in printed.splitlines()
+                                    if line.endswith("not written")]
+    return results
+
+
+def _edge_safe_gulfport(source: Path, root: Path) -> Path:
+    """A copy of a GULFPORT layout whose GT has no building-shadow pixel in
+    the last row or column: there the reveal tool's neighbour votes index past
+    the image and raise, in the JAX package as in the port."""
+    shutil.copytree(source / "GULFPORT", root / "GULFPORT")
+    gt_path = root / "GULFPORT" / "muulf_gt.tif"
+    gt = imread(str(gt_path))
+    shadow = reveal_shadow_targets.BUILDING_SHADOW_CLASS + 1
+    for edge in (gt[-1, :], gt[:, -1]):
+        edge[edge == shadow] = 0
+    imwrite(str(gt_path), gt)
+    return root
+
+
+def phase_utilities(device, work: Path, roots: dict, train_log_dir: Path) -> None:
+    """The five analysis tools on the card and on the CPU, on the layouts the
+    loader phases wrote: each result on the card against the same tool's on
+    the CPU."""
+    out = work / "utilities"
+    record: dict = {"seconds": {}, "unwritten": []}
+    # GRSS2013 <-> GRSS2018 registration: both datasets under one path
+    both = work / "registration"
+    both.mkdir()
+    for name, folder in (("grss2013", "2013_DFTC"), ("grss2018", "2018_DFTC")):
+        os.symlink(roots[name] / folder, both / folder)
+    matched = _card_and_cpu(device, lidar_matcher.main, [f"--path={both}"], out, record,
+                            "lidar_matcher")
+    check(matched["card"] == matched["cpu"],
+          f"lidar_matcher: card corners {matched['card']} against CPU {matched['cpu']}")
+    grss2013 = [f"--loader_name=GRSS2013DataLoader", f"--path={roots['grss2013']}"]
+    ratio = _card_and_cpu(device, measure_targets_shadow_ratio.main,
+                          [*grss2013, "--pairing_method=random"], out, record, "shadow_ratio")
+    for got, want, what in zip(ratio["card"], ratio["cpu"], ("mean", "std")):
+        check(bool(np.isfinite(got).all()) and np.allclose(got, want, rtol=1e-6, atol=0),
+              f"measure_targets_shadow_ratio: the {what} on the card differs from the CPU's")
+    removed = _card_and_cpu(device, remove_test_targets_from_shadow.main, grss2013, out, record,
+                            "remove_test_targets")
+    check(np.array_equal(removed["card"], removed["cpu"])
+          and np.array_equal(imread(str(removed["card_dir"] / "shadow_map.tif")), removed["cpu"]),
+          "remove_test_targets_from_shadow: the shadow maps differ")
+    histograms = _card_and_cpu(device, nn_layer_activation_graph.main, [
+        "--model_name=HYPELCNNModel", f"--neighborhood={NEIGHBORHOOD}", "--class_count=15",
+        "--bands=145", f"--algorithm_param_path={PARAMS_PATH}",
+        f"--base_log_path={train_log_dir}"], out, record, "activation_graph")
+    gaps = {name: float(np.abs(t - histograms["cpu"][name]).max())
+            / max(1.0, float(np.abs(histograms["cpu"][name]).max()))
+            for name, t in histograms["card"].items()}
+    check(len(gaps) == 4 and max(gaps.values()) <= HISTOGRAMS_CARD_VS_CPU,
+          f"nn_layer_activation_graph: card against CPU {gaps}")
+    muufl = _edge_safe_gulfport(roots["gulfport"], work / "muufl")
+    revealed = _card_and_cpu(device, reveal_shadow_targets.main, [
+        "--loader_name=GULFPORTDataLoader", f"--path={muufl}"], out, record, "reveal_shadow")
+    tiffs = {}
+    for name in revealed["card"]:
+        got, want = (imread(str(revealed[f"{side}_dir"] / name)) for side in ("card", "cpu"))
+        check(got.dtype == want.dtype and got.shape == want.shape, f"reveal_shadow_targets: {name}")
+        tiffs[name] = float(np.abs(got.astype(np.float64) - want).max())
+    check(tiffs["muulf_shadow_map.tif"] == 0 and tiffs["muulf_gt_shadow_corrected.tif"] == 0
+          and tiffs["muulf_hsi_shadow_corrected.tif"] <= 1e-6,
+          f"reveal_shadow_targets: card against CPU {tiffs}")
+    emit({"phase": "utilities", **record, "lidar_match": list(matched["card"]),
+          "shadow_ratio_mean": float(np.mean(ratio["card"][0])),
+          "non_shadow_map_pixels": int((removed["card"] == 0).sum()),
+          "histogram_card_vs_cpu": gaps, "reveal_card_vs_cpu": tiffs,
+          "shadow_pixels": int(revealed["card"]["muulf_shadow_map.tif"].sum())})
+
+
+def _same_forest(a: RandomForestClassifier, b: RandomForestClassifier) -> bool:
+    return len(a.trees) == len(b.trees) and all(
+        torch.equal(getattr(s, name).cpu(), getattr(t, name).cpu())
+        for s, t in zip(a.trees, b.trees)
+        for name in ("feature", "threshold", "left", "right", "value"))
+
+
+def phase_classic_ml(device, work: Path) -> dict:
+    """The classic-ML CLI on the GRSS2013-size synthetic scene with class
+    overlap (k = 1, C = 145) with the full scene in batches of 65,536, then
+    its SVM grid on a small scene, each checked on the card against the plain
+    gather and the CPU."""
+    loader = SyntheticDataLoader(CLASSIC_SPEC)
+    np.random.seed(SEED)
+    samples = loader.load_samples(0.1, 0)
+    targets = {"training": samples.training_targets, "validation": samples.validation_targets}
+    pixels = HEIGHT * WIDTH
+    expected = {targets["training"].shape[0]: 1, targets["validation"].shape[0]: 1}
+    expected[CLASSIC_BATCH] = expected.get(CLASSIC_BATCH, 0) + pixels // CLASSIC_BATCH
+    if pixels % CLASSIC_BATCH:
+        expected[pixels % CLASSIC_BATCH] = expected.get(pixels % CLASSIC_BATCH, 0) + 1
+    out = work / "classic"
+    args = ["--loader_name=SyntheticDataLoader", f"--path={CLASSIC_SPEC}", "--neighborhood=0",
+            "--fullscene", f"--batch_size={CLASSIC_BATCH}", f"--base_log_path={out}",
+            f"--output_path={out}"]
+    np.random.seed(SEED)
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats(device)
+    start = time.perf_counter()
+    (run,), _ = _run_quiet(classic_ml_trainer.main, [*args, f"--device={device.type}"])
+    cli_seconds = time.perf_counter() - start
+    cli_peak_bytes = torch.cuda.max_memory_allocated(device)
+    by_batch = _note_main_path()
+    check(dict(by_batch) == expected,
+          f"classic_ml: gather launches by batch {dict(by_batch)}, expected {expected}")
+    check(sorted(os.listdir(out)) == [
+        "confusion_matrix_SyntheticDataLoader_run0.csv", "metrics_SyntheticDataLoader_run0.txt",
+        "params_SyntheticDataLoader_run0.json", "result_colorized.tif", "result_raw.tif"],
+        f"classic_ml: wrote {sorted(os.listdir(out))}")
+    # the windows of each batch, bit for bit the plain gather's
+    scene_dev = loader.load_data(0, False).device_scene(device)
+    coords = {split: torch.from_numpy(t[:, :2].astype(np.int32)).to(device)
+              for split, t in targets.items()}
+    for split, x in (("training", run["train_x"]), ("validation", run["val_x"])):
+        plain = gather_patches_torch(scene_dev, coords[split], 1).reshape(x.shape[0], -1)
+        check(torch.equal(x, plain),
+              f"classic_ml: the {split} windows differ from the plain gather")
+    index = torch.arange(pixels, device=device, dtype=torch.int32)
+    scene_coords = torch.stack([index % WIDTH, index // WIDTH], dim=1)
+    batches = list(torch.split(scene_coords, CLASSIC_BATCH))
+    before = (window_gather_cuda.launches, window_gather_cuda.launches_by_batch.copy())
+    for batch in batches:
+        check(torch.equal(window_gather_cuda(scene_dev, batch.contiguous(), 1),
+                          gather_patches_torch(scene_dev, batch, 1)),
+              "classic_ml: a full-scene batch differs from the plain gather")
+    window_gather_cuda.launches, window_gather_cuda.launches_by_batch = before
+    scene_map = imread(str(out / "result_raw.tif"))
+    plain_map = np.concatenate([run["estimator"].predict(
+        gather_patches_torch(scene_dev, b, 1).reshape(b.shape[0], -1)) for b in batches])
+    check(np.array_equal(scene_map.reshape(-1), plain_map.astype(np.uint8)),
+          "classic_ml: the full-scene map differs from the plain gather's")
+    oa = run["overall_accuracy"]
+    check(oa > 1.0 / 15, f"classic_ml: validation OA {oa} is not above chance")
+    # the same draws on the CPU grow the same trees, node for node: the
+    # forest's first trees (a forest's seeds are the first of a longer draw's),
+    # which predict alike on the card and on the CPU
+    forest = run["estimator"]
+    np.random.seed(SEED)
+    loader.load_samples(0.1, 0)
+    start = time.perf_counter()
+    cpu_forest = RandomForestClassifier(n_estimators=CLASSIC_CPU_TREES, max_features=24).fit(
+        run["train_x"].cpu(), run["train_y"])
+    cpu_fit_seconds = time.perf_counter() - start
+    card_head = RandomForestClassifier(n_estimators=CLASSIC_CPU_TREES, max_features=24)
+    card_head.classes_, card_head.trees = forest.classes_, forest.trees[:CLASSIC_CPU_TREES]
+    check(_same_forest(card_head, cpu_forest),
+          f"classic_ml: the card's first {CLASSIC_CPU_TREES} trees differ from the CPU's")
+    head = run["val_x"][:CLASSIC_BATCH]
+    check(np.array_equal(cpu_forest.predict(head.cpu()), card_head.predict(head)),
+          "classic_ml: validation predictions differ, card against CPU")
+    nodes = [t.feature.shape[0] for t in forest.trees]
+    # the SVM grid on a small scene, card against CPU
+    grids, grid_seconds = {}, {}
+    for side, where in (("card", device.type), ("cpu", "cpu")):
+        np.random.seed(SEED)
+        reset_launches()
+        start = time.perf_counter()
+        (grid_run,), _ = _run_quiet(classic_ml_trainer.main, [
+            "--loader_name=SyntheticDataLoader", f"--path={CLASSIC_GRID_SPEC}",
+            "--neighborhood=0", "--hyperparamopt", f"--base_log_path={work / ('grid_' + side)}",
+            f"--device={where}"])
+        grid_seconds[side] = time.perf_counter() - start
+        grids[side] = grid_run["grid"]
+        if side == "card":
+            _note_main_path()
+    gaps = np.abs(grids["card"]["mean_test_score"] - grids["cpu"]["mean_test_score"])
+    check(grids["card"]["best_params"] == grids["cpu"]["best_params"]
+          and float(gaps.max()) <= CLASSIC_GRID_SCORE,
+          f"classic_ml: grid on the card {grids['card']['best_params']} against the CPU's "
+          f"{grids['cpu']['best_params']}, largest score gap {gaps.max()}")
+    emit({"phase": "classic_ml", "targets": {k: int(v.shape[0]) for k, v in targets.items()},
+          "gather_launches_by_batch": {str(b): n for b, n in sorted(by_batch.items())},
+          "validation_oa": oa, "cli_seconds": cli_seconds, "fit_seconds": run["fit_seconds"],
+          "predict_seconds": run["predict_seconds"],
+          "full_scene_seconds": run["full_scene_seconds"], "cli_peak_allocated_bytes":
+          cli_peak_bytes, "cpu_trees": CLASSIC_CPU_TREES, "cpu_fit_seconds": cpu_fit_seconds,
+          "forest_nodes": sum(nodes), "forest_nodes_per_tree": [min(nodes), max(nodes)],
+          "forest_depth": max(t.depth for t in forest.trees),
+          "grid_best": {k: float(v) for k, v in grids["card"]["best_params"].items()},
+          "grid_best_score": grids["card"]["best_score"],
+          "grid_score_gap": float(gaps.max()), "grid_cli_seconds": grid_seconds})
+    return {"scene": scene_dev, "coords": coords, "scene_coords": batches,
+            "by_batch": dict(by_batch)}
+
+
 def _rank_train_cli(task: dict, device) -> dict:
     reset_launches()
     start = time.perf_counter()
@@ -2182,7 +2443,7 @@ def _state_equal(a: dict, b: dict) -> bool:
 
 
 def phase_dist_world1(device, work: Path, data) -> dict:
-    """The train CLI at full HYPELCNN width (batch 48, 200 steps, no
+    """The train CLI at full HYPELCNN width (batch 48, 100 steps, no
     augmentation) in one plain process and in one NCCL rank that torchrun
     starts, both under cuDNN's and PyTorch's deterministic algorithms: the
     logged losses and the final checkpoints equal bit for bit (a mesh of one
@@ -2551,7 +2812,7 @@ def _bands(device, count: int = 20) -> list:
 
 
 def phase_kernels(device, scene, launches: int, train, families: dict, loaders: dict,
-                  augmented_launches: int, later: dict, dist: dict) -> None:
+                  augmented_launches: int, later: dict, dist: dict, classic: dict) -> None:
     """Kernel rows; ``launches`` are the sweep's, ``train["launches"]`` the
     train CLI run's, split by batch size; ``families`` the family phases'
     results, with their launches by batch size; ``loaders`` the GULFPORT and
@@ -2559,7 +2820,8 @@ def phase_kernels(device, scene, launches: int, train, families: dict, loaders: 
     ``augmented_launches`` the GAN-augmented train CLI runs' steps';
     ``later`` the search, TF checkpoint, world-1, resume and bfloat16 train
     CLI runs' launches (``steps`` at the step's batch, ``eval_batches`` at
-    the drains'); ``dist`` the two-rank runs' launches at a rank's shares."""
+    the drains'); ``dist`` the two-rank runs' launches at a rank's shares;
+    ``classic`` the classic-ML CLI's scene, coordinates and launches (k = 1)."""
     scene_dev = scene.device_scene(device)
     rows = [_gather_row(scene_dev, _bands(device), launches)]
     # the training path's shapes: the step's batch and the eval drain's
@@ -2612,6 +2874,19 @@ def phase_kernels(device, scene, launches: int, train, families: dict, loaders: 
         rows.append(_gather_row(
             phase["scene"].device_scene(device), _training_batches(phase["tables"], 0, 21),
             phase["run"]["by_batch"][LOADER_BATCH], f" ({note} training step)"))
+    # the classic-ML CLI's shapes, k = 1 on the unnormalized scene: each
+    # split once, and the full scene in batches
+    for split in ("training", "validation"):
+        coords = classic["coords"][split]
+        rows.append(_gather_row(classic["scene"], [coords] * 21,
+                                classic["by_batch"][coords.shape[0]],
+                                f" (classic ML: the {split} split, the same coordinates each call)",
+                                k=1))
+    full = [b for b in classic["scene_coords"] if b.shape[0] == CLASSIC_BATCH]
+    rows.append(_gather_row(classic["scene"], [b.contiguous() for b in full],
+                            classic["by_batch"][CLASSIC_BATCH],
+                            " (classic ML: a full-scene batch; the scene's last, shorter batch"
+                            " launches once more)", k=1))
     emit({"kernels": rows})
 
 
@@ -2699,7 +2974,9 @@ def main() -> int:
         start = time.perf_counter()
         out = fn(*args)
         seconds[phase] = time.perf_counter() - start
-        emit({"phase_done": phase, "seconds": seconds[phase]})
+        emit({"phase_done": phase, "seconds": seconds[phase],
+              "device_allocated_bytes": torch.cuda.memory_allocated(),
+              "device_reserved_bytes": torch.cuda.memory_reserved()})
         return out
 
     name = timed("device", phase_device)
@@ -2736,11 +3013,15 @@ def main() -> int:
                      gan["pairs"])
         del gan["pairs"]
         bf16 = timed("bf16", phase_bf16, device, Path(work), data, train, families)
+        timed("utilities", phase_utilities, device, Path(work),
+              {"grss2013": root, "grss2018": Path(work) / "grss2018",
+               "gulfport": Path(work) / "gulfport"}, train["log_dir"])
+        classic = timed("classic_ml", phase_classic_ml, device, Path(work))
     timed("fused_levels", phase_fused_levels, device, scene, families["family_dualcnn"])
     later = {key: sum(run[key] for run in (searched, imported, world1, dist, bf16))
              for key in ("steps", "eval_batches")}
     timed("kernels", phase_kernels, device, scene, launches, train, families, loaders,
-          augmented["launches"], later, dist)
+          augmented["launches"], later, dist, classic)
     timed("profile", phase_profile, device, scene, module)
     timed("profile_train", phase_profile_train, train)
     torch.cuda.synchronize()

@@ -2,9 +2,9 @@
 
 The functions and their results are those of ``hypelcnn_tpu/data/splitters.py``,
 which splits with scikit-learn's ``StratifiedShuffleSplit``. The port has no
-scikit-learn, so :func:`stratified_shuffle_split` repeats in numpy the three
-pieces that ``StratifiedShuffleSplit(n_splits=1)`` runs, with the same random
-draws in the same order:
+scikit-learn, so :func:`stratified_shuffle_splits` repeats in numpy the three
+pieces that ``StratifiedShuffleSplit`` runs for each split, with the same
+random draws in the same order:
 
 1. the sizes (``_validate_shuffle_split``): a float train size gives
    ``floor(train_size * n)`` and a float test size ``ceil(test_size * n)``; the
@@ -23,7 +23,7 @@ seed is given, ``np.random.RandomState(seed)`` otherwise. ``RandomState``'s
 from __future__ import annotations
 
 import math
-from typing import Iterable, Optional, Tuple
+from typing import Iterable, Iterator, Optional, Tuple
 
 import numpy as np
 
@@ -97,11 +97,12 @@ def approximate_mode(class_counts: np.ndarray, n_draws: int, rng) -> np.ndarray:
     return floored.astype(int)
 
 
-def stratified_shuffle_split(y: np.ndarray, train_size=None, test_size=None,
-                             random_state: Optional[int] = None
-                             ) -> Tuple[np.ndarray, np.ndarray]:
-    """``(train_index, test_index)`` of ``StratifiedShuffleSplit(n_splits=1,
-    train_size=..., test_size=..., random_state=...).split(X, y)``."""
+def stratified_shuffle_splits(y: np.ndarray, n_splits: int = 1, train_size=None,
+                              test_size=None, random_state: Optional[int] = None
+                              ) -> Iterator[Tuple[np.ndarray, np.ndarray]]:
+    """The ``(train_index, test_index)`` pairs of ``StratifiedShuffleSplit(
+    n_splits=..., train_size=..., test_size=..., random_state=...).split(X, y)``:
+    one random state for all the splits, drawn in scikit-learn's order."""
     y = np.asarray(y)
     n_train, n_test = _split_sizes(y.shape[0], train_size, test_size)
     classes, y_indices, class_counts = np.unique(y, return_inverse=True, return_counts=True)
@@ -118,16 +119,24 @@ def stratified_shuffle_split(y: np.ndarray, train_size=None, test_size=None,
                          f"number of classes = {n_classes}")
     class_indices = np.split(np.argsort(y_indices, kind="stable"), np.cumsum(class_counts)[:-1])
     rng = np.random if random_state is None else np.random.RandomState(random_state)
+    for _ in range(n_splits):
+        n_i = approximate_mode(class_counts, n_train, rng)
+        t_i = approximate_mode(class_counts - n_i, n_test, rng)
+        train, test = [], []
+        for i in range(n_classes):
+            permutation = rng.permutation(class_counts[i])
+            perm_indices_class_i = class_indices[i].take(permutation, mode="clip")
+            train.append(perm_indices_class_i[: n_i[i]])
+            test.append(perm_indices_class_i[n_i[i]: n_i[i] + t_i[i]])
+        yield rng.permutation(np.concatenate(train)), rng.permutation(np.concatenate(test))
 
-    n_i = approximate_mode(class_counts, n_train, rng)
-    t_i = approximate_mode(class_counts - n_i, n_test, rng)
-    train, test = [], []
-    for i in range(n_classes):
-        permutation = rng.permutation(class_counts[i])
-        perm_indices_class_i = class_indices[i].take(permutation, mode="clip")
-        train.append(perm_indices_class_i[: n_i[i]])
-        test.append(perm_indices_class_i[n_i[i]: n_i[i] + t_i[i]])
-    return rng.permutation(np.concatenate(train)), rng.permutation(np.concatenate(test))
+
+def stratified_shuffle_split(y: np.ndarray, train_size=None, test_size=None,
+                             random_state: Optional[int] = None
+                             ) -> Tuple[np.ndarray, np.ndarray]:
+    """``(train_index, test_index)`` of ``StratifiedShuffleSplit(n_splits=1,
+    train_size=..., test_size=..., random_state=...).split(X, y)``."""
+    return next(stratified_shuffle_splits(y, 1, train_size, test_size, random_state))
 
 
 def shuffle_training_data_using_ratio(result: np.ndarray, train_data_ratio: float

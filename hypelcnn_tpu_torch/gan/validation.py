@@ -25,6 +25,8 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 
+from hypelcnn_tpu_torch.utils.plotting import pyplot
+
 
 def adj_shadow_ratio(shadow_ratio: np.ndarray, is_shadow: bool) -> np.ndarray:
     return 1.0 / shadow_ratio if is_shadow else shadow_ratio
@@ -132,13 +134,9 @@ def plot_overall_info(bands, mean, lower_bound, upper_bound, iteration,
     """Percentile band-ratio pdf plot; without matplotlib, a line that says
     it was not written."""
     path = os.path.join(log_dir, f"{plt_name}_{iteration}.pdf")
-    try:
-        import matplotlib
-    except ImportError:
-        print(f"matplotlib is not installed: {path} not written")
+    plt = pyplot(path)
+    if plt is None:
         return
-    matplotlib.use("Agg")
-    from matplotlib import pyplot as plt
     plt.rcParams["font.size"] = 14
     plt.scatter(bands, mean, label="mean ratio", s=10)
     plt.plot(bands, mean)

@@ -240,7 +240,7 @@ class GANTrainerBase:
     def build_nets(self) -> nn.ModuleDict:
         raise NotImplementedError
 
-    def init_state(self, device="cpu", generator: Optional[torch.Generator] = None,
+    def init_state(self, device, generator: Optional[torch.Generator] = None,
                    state_dict: Optional[Dict[str, torch.Tensor]] = None) -> GANState:
         """A fresh state on ``device``: the networks from ``state_dict`` when
         given, else the JAX package's initializers drawn from ``generator``;
@@ -258,7 +258,7 @@ class GANTrainerBase:
                  for name in self.pool_names}
         return GANState(step=0, nets=nets, opt_states=opt_states, pools=pools)
 
-    def restore_nets(self, path: str, device="cpu") -> nn.ModuleDict:
+    def restore_nets(self, path: str, device) -> nn.ModuleDict:
         """The networks of the params snapshot directory ``path`` (written by
         ``gan_train_for_shadow``), on ``device``, in evaluation mode."""
         nets = self.build_nets()

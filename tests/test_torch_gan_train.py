@@ -153,3 +153,15 @@ def test_full_state_round_trips(tmp_path):
     other = get_trainer_dict(CONFIG, 16, MAX_STEPS)["gan_x2y"].init_state("cpu")
     with pytest.raises(ValueError, match="not this trainer's"):
         other.restore({**saved, "state_dict": other.checkpoint()["state_dict"]})
+
+
+def test_init_state_and_restore_nets_need_a_device(tmp_path):
+    """Neither entry point picks a device for a caller that names none: the
+    CPU is never a silent default."""
+    trainer = get_trainer_dict(CONFIG, 16, MAX_STEPS)["cycle_gan"]
+    with pytest.raises(TypeError, match="device"):
+        trainer.init_state()
+    with pytest.raises(TypeError, match="device"):
+        trainer.init_state(generator=torch.Generator().manual_seed(0))
+    with pytest.raises(TypeError, match="device"):
+        trainer.restore_nets(str(tmp_path))

@@ -1,10 +1,11 @@
 """The PyTorch port stands alone: nothing in it, nor in ``chip_smoke.py``,
 the port's scripts (``scripts/torch_*.py``) or the rank worker of its
 multi-process tests (``tests/torch_mp_worker.py``), imports jax, flax, optax, orbax,
-scikit-learn, TensorFlow, the JAX package, or the image libraries the JAX
-package reads through (PIL, imageio, tifffile), none of which the card's
+scikit-learn, TensorFlow, the JAX package, OpenCV, or the image libraries the
+JAX package reads through (PIL, imageio, tifffile), none of which the card's
 machine has (the port reads TF checkpoints, records and event files with
-numpy); matplotlib (which it lacks too) is imported only inside the function
+numpy, and has its own copies of the OpenCV calls and the scikit-learn
+estimators); matplotlib (which it lacks too) is imported only inside the function
 that draws a plot; and its CLIs run on CUDA unless asked for the CPU."""
 
 import ast
@@ -18,7 +19,7 @@ import torch
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT = ROOT / "hypelcnn_tpu_torch"
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "sklearn", "hypelcnn_tpu",
-             "PIL", "imageio", "tifffile", "tensorflow"}
+             "PIL", "imageio", "tifffile", "tensorflow", "cv2"}
 
 
 def _port_files():
@@ -107,6 +108,25 @@ def test_train_cli_without_device_refuses_to_run_without_cuda(monkeypatch, tmp_p
 def test_gan_clis_without_device_refuse_to_run_without_cuda(monkeypatch, tmp_path, app, args):
     import importlib
     main = importlib.import_module(f"hypelcnn_tpu_torch.apps.{app}").main
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        main(["--loader_name=SyntheticDataLoader", "--path=synthetic://?h=8&w=8&bands=3",
+              f"--base_log_path={tmp_path / 'run'}", f"--output_path={tmp_path}", *args])
+    assert not any(tmp_path.iterdir())
+
+
+@pytest.mark.parametrize("module, args", [
+    ("apps.classic_ml_trainer", ["--fullscene", "--hyperparamopt"]),
+    ("utils.lidar_matcher", []),
+    ("utils.measure_targets_shadow_ratio", ["--pairing_method=random"]),
+    ("utils.nn_layer_activation_graph", ["--bands=4", "--class_count=3"]),
+    ("utils.remove_test_targets_from_shadow", []),
+    ("utils.reveal_shadow_targets", []),
+])
+def test_offline_tools_without_device_refuse_to_run_without_cuda(monkeypatch, tmp_path, module,
+                                                                 args):
+    import importlib
+    main = importlib.import_module(f"hypelcnn_tpu_torch.{module}").main
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         main(["--loader_name=SyntheticDataLoader", "--path=synthetic://?h=8&w=8&bands=3",

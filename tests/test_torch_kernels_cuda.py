@@ -225,3 +225,50 @@ def test_gan_augmented_step_launches_the_gather_once(cuda):
     loss = trainer.train_step(state, tables, 0)
     assert window_gather_cuda.launches == 1 and window_gather_cuda.launches_by_batch[16] == 1
     assert np.isfinite(float(loss))
+
+
+@pytest.mark.cuda
+def test_classic_forest_on_the_card_is_the_cpu_forest(cuda):
+    """The classic-ML CLI's windows on the card (one gather launch, k = 1) are
+    the plain gather's, and its forest is, node for node, the one grown on
+    the CPU from the same ``np.random`` state; so are the predictions."""
+    from hypelcnn_tpu_torch.apps.classic_ml_trainer import gather_windows
+    from hypelcnn_tpu_torch.classic.forest import RandomForestClassifier
+    loader = SyntheticDataLoader("synthetic://?h=48&w=64&bands=12&classes=5&noise=3000")
+    scene = loader.load_data(0, False)
+    np.random.seed(0)
+    targets = loader.load_samples(0.1, 0).training_targets
+    reset_launches()
+    windows = gather_windows(scene, targets, cuda)
+    torch.cuda.synchronize()
+    assert window_gather_cuda.launches == 1
+    plain = gather_windows(scene, targets, torch.device("cpu"))
+    assert torch.equal(windows.cpu(), plain)
+    forests = []
+    for data in (windows, plain):
+        np.random.seed(1)
+        forests.append(RandomForestClassifier(n_estimators=10, max_features=5).fit(
+            data, targets[:, 2]))
+    for a, b in zip(*(forest.trees for forest in forests)):
+        for name in ("feature", "threshold", "left", "right", "value"):
+            assert torch.equal(getattr(a, name).cpu(), getattr(b, name))
+    np.testing.assert_array_equal(forests[0].predict(windows), forests[1].predict(plain))
+
+
+@pytest.mark.cuda
+def test_classic_svm_grid_on_the_card_is_the_cpu_grid(cuda):
+    """The SVM grid's cells on the card score as on the CPU (within 0.01) and
+    pick the same best cell."""
+    from hypelcnn_tpu_torch.classic.model_selection import StratifiedShuffleSplit, grid_search
+    loader = SyntheticDataLoader("synthetic://?h=24&w=48&bands=144&classes=3")
+    scene = loader.load_data(0, False)
+    np.random.seed(1)
+    targets = loader.load_samples(0.1, 0).training_targets
+    x = torch.from_numpy(scene.fused_host()[targets[:, 1], targets[:, 0]])
+    grids = [grid_search(x.to(device), targets[:, 2], np.logspace(-2, 10, 13),
+                         np.logspace(-9, 3, 13),
+                         StratifiedShuffleSplit(n_splits=2, test_size=0.1, random_state=42))
+             for device in (cuda, torch.device("cpu"))]
+    assert grids[0]["best_params"] == grids[1]["best_params"]
+    np.testing.assert_allclose(grids[0]["mean_test_score"], grids[1]["mean_test_score"],
+                               rtol=0, atol=0.01)
