@@ -146,18 +146,18 @@ Then three phases on the same layout:
   loss, the gather's launches; the reader's seconds, the step beside
   ``gan_augmented``'s.
 
-Three phases of the multi-device paths and bfloat16, ``dist_world1`` right
+Six phases of the multi-device paths and bfloat16, ``dist_world1`` right
 after ``kernel_vs_plain`` (it needs nothing the other phases make), the
-other two after ``tf_checkpoint``:
+other five after ``tf_checkpoint``:
 
-- ``dist_world1``: the train CLI at HYPELCNN's full width (batch 48, 100
+- ``dist_world1``: the train CLI at HYPELCNN's full width (batch 48, 50
   steps, no augmentation) in one plain process and under ``torchrun
   --nproc_per_node=1`` on NCCL, both under deterministic algorithms: the
   logged losses and the final weights equal bit for bit, the gather's exact
   launches, and each step's time, whose kernels may differ only by
   collectives (a mesh of one rank runs none);
 - ``dist_two_ranks_one_card``: two ranks on the one H100 over gloo (NCCL
-  refuses two ranks on one card): the train CLI (global batch 48, 100
+  refuses two ranks on one card): the train CLI (global batch 48, 50
   steps, augmentation, checkpoints every 10), its step 1 within 1e-4 of one
   rank's and its loss falling, one log dir written by the chief alone, each
   rank's gather launches its 24-window steps plus its eval-drain shares;
@@ -168,6 +168,25 @@ other two after ``tf_checkpoint``:
   rank to step 20 within 1e-4 of an uninterrupted one-rank run; the step
   times (two ranks sharing one card through gloo's host staging: not a
   measure of scaling);
+- ``tp_two_ranks_one_card`` (tensor parallelism, the mesh's model axis): a
+  (1, 2) mesh over gloo, HYPELCNN at
+  ``configs/modelconfigs/alg_param_hypelcnn_1200.json`` (the width the
+  model axis was written for), batch 48, augmentation on, through the
+  trainer: 10 steps, step 1 within 1e-4 of one rank's on the card from the
+  same init; the 13 kernels JAX's rule shards; the full-width checkpoint at
+  step 10 resumed in one rank, whose test drain and 3-band sweep (a
+  48-row scene of the same width) on those weights equal the ranks' but
+  for top-two ties, and whose next 5 steps stay within 1e-3 of an
+  uninterrupted one-rank run; each rank's step time, channel gathers and
+  input-gradient sums a step, peak memory, and its exact gather launches;
+- ``tp_data_model_four_ranks``: a (2, 2) mesh, four ranks over gloo,
+  HYPELCNN at 480 width, global batch 48 (24 windows a data index): 8
+  sharded kernels, the losses against one rank (step 1 within 1e-4), each
+  rank's step time and collectives;
+- ``search_two_ranks``: the train CLI's search under torchrun on two
+  ranks, 2 trials of 20 steps: both ranks run the trials the chief drew, in
+  the same log dirs; only the chief opens the study, whose file alone is in
+  the working directory; each rank's exact gather launches;
 - ``bf16``: HYPELCNN's published JSON with ``compute_dtype: "bfloat16"``
   through the train CLI (100 steps, the ``train`` phase's augmentation):
   exact launches, a loss below step 1's; the ``train`` phase's checkpoint
@@ -214,10 +233,12 @@ band, each family's training step, the GULFPORT and AVON training steps
 step's row counts the
 GAN-augmented, search, TF-checkpoint, world-1, resume and bfloat16 runs'
 steps too, and the eval row their drains; three rows give a rank's halves
-of the training step, of an eval batch and of a sweep band (the launch
-floor, with the main path's
-launches at B = 1, which must be none). A last line
-before the result gives each phase's seconds.
+of the training step, of an eval batch and of a sweep band (with the
+search under two ranks), four the tensor-parallel ranks' shapes (a (1, 2)
+rank's whole step, test drain and band, a (2, 2) rank's half step), and
+one a single window (the launch floor, with the main path's launches at
+B = 1, which must be none). A last line before the result gives each
+phase's seconds.
 
 The last line is ``{"ok": true, "device": {...}}``. Any failure raises.
 """
@@ -283,13 +304,14 @@ from hypelcnn_tpu_torch.ops.window_gather import gather_patches_dual, gather_pat
 from hypelcnn_tpu_torch.parallel.distributed import finalize_distributed, join_rank
 from hypelcnn_tpu_torch.parallel.distributed import rank as dist_rank
 from hypelcnn_tpu_torch.parallel.distributed import world_size as dist_world_size
-from hypelcnn_tpu_torch.parallel.mesh import create_mesh, pad_to_multiple
+from hypelcnn_tpu_torch.parallel.mesh import create_mesh, pad_to_multiple, tp_sharded_keys
 from hypelcnn_tpu_torch.train.checkpoint import (
     checkpoint_steps,
     restore_checkpoint,
     save_checkpoint,
 )
 from hypelcnn_tpu_torch.train.trainer import ClassificationTrainer, make_epoch_index_stream
+from hypelcnn_tpu_torch.tune import search as tune_search
 from hypelcnn_tpu_torch.utils import (
     lidar_matcher,
     measure_targets_shadow_ratio,
@@ -351,7 +373,7 @@ MEMBER_DRAWS, DUAL_CHECKS = 10240, 4096
 AVON_SIZE = {"height": 500, "width": 300}  # AVON's size is not published; this is ours
 LOADER_OA = {"GRSS2013DataLoader": 0.5, "GRSS2018DataLoader": 0.5,
              "GULFPORTALTDataLoader": 0.5, "AVONDataLoader": 0.75}  # chance 1/15, 1/20, 1/11, 1/2
-FUSED_PAIRS = 3  # DUALCNN step pairs, unfused against fused
+FUSED_PAIRS, FUSED_RUN_STEPS, FUSED_TRACED = 3, 25, 10  # DUALCNN step pairs, unfused against fused
 # the GAN phases, on the GRSS2013 layout (144 CASI bands)
 GAN_BANDS, GAN_BATCH, GAN_STEPS, GAN_VALIDATION, GAN_RESUME_STEPS = 144, 32, 250, 125, 300
 GAN_TIMED_STEPS, GAN_FAMILY_STEPS, TRANSLATE_CHECKS = 50, 10, 4096
@@ -366,8 +388,18 @@ TF_FIXTURE = ROOT / "tests" / "torch_fixtures" / "tf_cycle_gan_144"
 TF_TRANSLATE_CHECKS = 1024
 PROFILED_STEPS = 10  # profile_train's traced steps
 # the multi-device phases: one rank plainly and on NCCL; two ranks on the one card
-DIST_WORLD1_STEPS, DIST_STEPS, DIST_CHECKPOINT_EVERY, DIST_RESUME_STEPS = 100, 100, 10, 20
+DIST_WORLD1_STEPS, DIST_STEPS, DIST_CHECKPOINT_EVERY, DIST_RESUME_STEPS = 50, 50, 10, 20
 DIST_GAN_STEPS, DIST_CAP_STEPS, DIST_TIMED_STEPS, DIST_PROFILED_STEPS = 30, 20, 10, 3
+# tensor parallelism, two and four ranks on the one card: HYPELCNN-1200 on a
+# (1, 2) mesh (13 kernels sharded, JAX's rule) with its checkpoint, test drain and
+# a sweep of 3 bands of a 48-row scene of the same width; HYPELCNN-480 on (2, 2)
+# (8 sharded); then the train CLI's search under two ranks
+TP_PARAMS_PATH = CONFIGS / "alg_param_hypelcnn_1200.json"
+TP_STEPS, TP_TIMED_STEPS, TP_RESUME_STEPS, TP_SHARDED_KERNELS = 5, 5, 5, 13
+TP_SWEEP_SPEC, TP_SWEEP_BANDS = "synthetic://?h=48&w=1905&bands=144&classes=15", 3
+TP_DRAIN_DIFFER = 3  # of the 3,325 test windows: top-two ties, about 1e-3
+TP4_STEPS, TP4_TIMED_STEPS, TP4_SHARDED_KERNELS = 5, 5, 8
+SEARCH_RANK_STEPS = 20
 # the bfloat16 phase; the sweep's threshold is tests/test_torch_bf16.py's (0.9935
 # measured on the CPU); the card-against-CPU loss limit is twice the largest gap
 # read on the card (4.7e-4, CONCNN's third step)
@@ -1005,10 +1037,10 @@ def phase_fused_levels(device, scene3, dual) -> None:
 def _fused_timings(device, dual, unfused, fused) -> dict:
     """DUALCNN unfused and fused: the sweep (one cold run; three runs after
     a warm-up spread by 0.07% in earlier calls) with its peak memory, then the
-    step in FUSED_PAIRS pairs of 50-step runs after 10 warm-up steps each,
+    step in FUSED_PAIRS pairs of FUSED_RUN_STEPS-step runs after 10 warm-up steps each,
     alternating which version runs first (the host-bound step drifts within
     a call by more than the versions differ), with each version's kernel
-    launches and idle share over 20 traced steps."""
+    launches and idle share over FUSED_TRACED traced steps."""
     family, scene, data = dual["family"], dual["scene"], dual["data"]
     timed = {}
     for name, module in (("unfused", unfused), ("fused", fused)):
@@ -1023,7 +1055,8 @@ def _fused_timings(device, dual, unfused, fused) -> dict:
         trainer = _trainer(data, {**dual["params"], "fuse_level_convs": fuse}, device,
                            _augmentation(), model=family.model)
         state = trainer.init_state()
-        tables = trainer.training_tables(10 + FUSED_PAIRS * 50 + 40, family.batch)
+        tables = trainer.training_tables(10 + FUSED_PAIRS * FUSED_RUN_STEPS + 2 * FUSED_TRACED,
+                                         family.batch)
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         _timed_steps(trainer, state, tables, 0, 10)
@@ -1033,12 +1066,14 @@ def _fused_timings(device, dual, unfused, fused) -> dict:
     for pair in range(FUSED_PAIRS):
         for name in (("unfused", "fused") if pair % 2 == 0 else ("fused", "unfused")):
             trainer, state, tables = steppers[name]
-            runs[name].append(_timed_steps(trainer, state, tables, 10 + 50 * pair, 50) / 50)
+            runs[name].append(_timed_steps(trainer, state, tables, 10 + FUSED_RUN_STEPS * pair,
+                                           FUSED_RUN_STEPS) / FUSED_RUN_STEPS)
     for name, (trainer, state, tables) in steppers.items():
-        _, profile = _steps_profile(trainer, state, tables, 10 + FUSED_PAIRS * 50, 20, top=0)
+        _, profile = _steps_profile(trainer, state, tables, 10 + FUSED_PAIRS * FUSED_RUN_STEPS,
+                                    FUSED_TRACED, top=0)
         timed[name].update({"step_seconds": statistics.median(runs[name]),
                             "step_runs": runs[name],
-                            "step_launches": profile["kernel_launches"] / 20,
+                            "step_launches": profile["kernel_launches"] / FUSED_TRACED,
                             "step_idle_share": profile["device_idle_share"]})
     timed["fused_step_wins"] = sum(f < u for u, f in zip(runs["unfused"], runs["fused"]))
     return timed
@@ -2307,8 +2342,101 @@ def _rank_gan(task: dict, device) -> dict:
             "step_seconds": (time.perf_counter() - start) / task["steps"]}
 
 
+def _tp_trainer(params_path: Path, device, mesh, log_dir=None) -> ClassificationTrainer:
+    """HYPELCNN at the width of ``params_path``, batch 48, the ``train``
+    phase's augmentation, on ``mesh``."""
+    data = _training_data()
+    params = {**load_algorithm_params(HYPELCNNModel().default_params(), str(params_path)),
+              "batch_size": TRAIN_BATCH}
+    return ClassificationTrainer(
+        model=HYPELCNNModel(), class_count=data.class_count, algorithm_params=params,
+        scene=data.scene, sample_set=data.sample_set, sources=data.sources,
+        data_shape=data.data_shape, augmentation_info=_augmentation(), device=device,
+        mesh=mesh, log_dir=log_dir)
+
+
+def _launches() -> dict:
+    return {str(b): n for b, n in window_gather_cuda.launches_by_batch.items()}
+
+
+def _rank_tp(task: dict, device) -> dict:
+    """HYPELCNN through the trainer on a (data, model) mesh of every rank,
+    from the seed's init: ``steps`` steps whose losses are read, ``timed``
+    more timed, with the model-axis collectives counted; then, when asked,
+    the full-width checkpoint (the chief writes it), a test drain and a
+    sweep of ``sweep_spec``'s bands, whose map the chief saves."""
+    mesh = create_mesh(task["model_parallel"])
+    trainer = _tp_trainer(Path(task["params_path"]), device, mesh)
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    state = trainer.init_state()
+    steps, timed = task["steps"], task["timed_steps"]
+    tables = trainer.training_tables(steps + timed, TRAIN_BATCH)
+    losses = [float(trainer.train_step(state, tables, step)) for step in range(steps)]
+    gathers, sums = mesh.channel_gathers, mesh.gradient_sums
+    step_seconds = _timed_steps(trainer, state, tables, steps, timed) / timed
+    out = {"losses": losses, "step_seconds": step_seconds, "sharded": sorted(state.sharded),
+           "channel_gathers_per_step": (mesh.channel_gathers - gathers) / timed,
+           "gradient_sums_per_step": (mesh.gradient_sums - sums) / timed,
+           "step_peak_bytes": torch.cuda.max_memory_allocated(),
+           "data_rank": mesh.data_rank, "model_rank": mesh.model_rank,
+           "backend": torch.distributed.get_backend()}
+    if task.get("log_dir"):
+        payload = state.checkpoint()  # every rank: the shards are gathered
+        if dist_rank() == 0:
+            save_checkpoint(task["log_dir"], **payload)
+        mesh.barrier()
+        start = time.perf_counter()
+        out["test"] = trainer.evaluate(state, "test").confusion.tolist()
+        out["drain_seconds"] = time.perf_counter() - start
+        scene = SyntheticDataLoader(task["sweep_spec"]).load_data(NEIGHBORHOOD, True)
+        gathers = mesh.channel_gathers
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        swept = predict_full_scene(state.module, scene, device=device, mesh=mesh)
+        out["sweep_seconds"] = time.perf_counter() - start
+        out["sweep_channel_gathers"] = mesh.channel_gathers - gathers
+        if dist_rank() == 0:
+            np.save(task["map"], swept)
+    out["peak_bytes"] = torch.cuda.max_memory_allocated()
+    out["launches"] = _launches()
+    return out
+
+
+def _rank_search(task: dict, device) -> dict:
+    """The train CLI's search under torchrun, in ``workdir``: each episode's
+    searched params and log dir, and this rank's sqlite connections, recorded."""
+    episode, connect = train_for_classification.perform_an_episode, tune_search.sqlite3.connect
+    episodes, connects = [], []
+
+    def recorded(flags, params, *rest):
+        episodes.append({"learning_rate": params["learning_rate"], "log": rest[1]})
+        return episode(flags, params, *rest)
+
+    def counted(*args, **kwargs):
+        connects.append(args[0])
+        return connect(*args, **kwargs)
+
+    train_for_classification.perform_an_episode = recorded
+    tune_search.sqlite3.connect = counted
+    cwd = os.getcwd()
+    os.chdir(task["workdir"])
+    reset_launches()
+    start = time.perf_counter()
+    try:
+        study, _ = _run_train_cli(task["args"])
+    finally:
+        os.chdir(cwd)
+        train_for_classification.perform_an_episode = episode
+        tune_search.sqlite3.connect = connect
+    return {"seconds": time.perf_counter() - start, "episodes": episodes,
+            "connects": len(connects), "trials": study.trials, "launches": _launches(),
+            "total_launches": window_gather_cuda.launches}
+
+
 RANK_TASKS = {"train_cli": _rank_train_cli, "infer_cli": _rank_infer_cli, "steps": _rank_steps,
-              "cap_sweep": _rank_cap_sweep, "gan": _rank_gan}
+              "cap_sweep": _rank_cap_sweep, "gan": _rank_gan, "tp": _rank_tp,
+              "search": _rank_search}
 
 
 def rank_main(spec_path: str) -> int:
@@ -2443,7 +2571,7 @@ def _state_equal(a: dict, b: dict) -> bool:
 
 
 def phase_dist_world1(device, work: Path, data) -> dict:
-    """The train CLI at full HYPELCNN width (batch 48, 100 steps, no
+    """The train CLI at full HYPELCNN width (batch 48, 50 steps, no
     augmentation) in one plain process and in one NCCL rank that torchrun
     starts, both under cuDNN's and PyTorch's deterministic algorithms: the
     logged losses and the final checkpoints equal bit for bit (a mesh of one
@@ -2466,7 +2594,8 @@ def phase_dist_world1(device, work: Path, data) -> dict:
     check(plain["cli"]["backend"] is None and nccl["cli"]["backend"] == "nccl",
           f"backends {plain['cli']['backend']}, {nccl['cli']['backend']}")
     losses = {name: _logged_losses(d) for name, d in dirs.items()}
-    check(losses["plain"] == losses["nccl"] and len(losses["plain"]) == DIST_WORLD1_STEPS // 100,
+    check(losses["plain"] == losses["nccl"]
+          and len(losses["plain"]) == math.ceil(DIST_WORLD1_STEPS / 100),
           f"world-1 NCCL losses {losses['nccl']} against plain {losses['plain']}; operations "
           f"without a deterministic implementation: {plain['nondeterministic_ops']}")
     check(_state_equal(*(restore_checkpoint(str(d))["state_dict"] for d in dirs.values())),
@@ -2514,7 +2643,7 @@ def _cap_trained(device, root: Path, data) -> tuple:
 
 def phase_dist_two_ranks(device, work: Path, data, pairs: dict) -> dict:
     """Two ranks on the one card over gloo (NCCL refuses two ranks on one
-    card), at full width: the HYPELCNN train CLI (global batch 48, 100 steps,
+    card), at full width: the HYPELCNN train CLI (global batch 48, 50 steps,
     augmentation, checkpoints every 10) and the infer CLI ``--domain all``
     from its checkpoint, CAP's sweep and cycle_gan's steps on the GRSS2013
     layout's pairs, each against one rank; then the two-rank checkpoint
@@ -2658,6 +2787,196 @@ def phase_dist_two_ranks(device, work: Path, data, pairs: dict) -> dict:
             "half_bands": sum(r["infer"]["launches"] for r in ranks),
             "steps": resume_launches["steps"] + straight_launches["steps"],
             "eval_batches": resume_launches["eval_batches"] + straight_launches["eval_batches"]}
+
+
+def phase_tp_two_ranks(device, work: Path, data) -> dict:
+    """Tensor parallelism: a (1, 2) mesh, two ranks on the one card over
+    gloo, HYPELCNN at the 1200 width the model axis was written for, batch
+    48, augmentation on. Its losses against one rank on the card from the
+    same init (step 1 within 1e-4); its full-width checkpoint resumed in one
+    rank (a test drain and a sweep of 3 bands on those weights equal the
+    ranks' but for top-two ties, and 5 more steps within 1e-3 of an
+    uninterrupted one-rank run); the 13 sharded kernels; each rank's step
+    time, model-axis collectives a step and peak memory."""
+    root = work / "tp_two_ranks"
+    root.mkdir(parents=True)
+    log_dir, map_path = root / "log", root / "tp_map.npy"
+    saved = TP_STEPS + TP_TIMED_STEPS
+    ranks = _launch_ranks(root, [{
+        "kind": "tp", "name": "tp", "model_parallel": 2, "params_path": str(TP_PARAMS_PATH),
+        "steps": TP_STEPS, "timed_steps": TP_TIMED_STEPS, "log_dir": str(log_dir),
+        "sweep_spec": TP_SWEEP_SPEC, "map": str(map_path)}], nproc=2, deterministic=True)
+    chief, other = (r["tp"] for r in ranks)
+    check(chief["backend"] == other["backend"] == "gloo", f"TP ranks ran {chief['backend']}")
+    check([(r["data_rank"], r["model_rank"]) for r in (chief, other)] == [(0, 0), (0, 1)],
+          "the (1, 2) mesh's ranks are not laid out as JAX lays out its devices")
+    check(chief["losses"] == other["losses"] and chief["test"] == other["test"],
+          f"the model ranks disagree: {chief['losses']} / {other['losses']}")
+    n_test = data.targets("test").shape[0]
+    expected = {str(TRAIN_BATCH): saved, str(n_test): 1, str(WIDTH * BATCH_ROWS): TP_SWEEP_BANDS}
+    for rank, run in enumerate((chief, other)):
+        check(run["launches"] == expected,
+              f"TP rank {rank}: gather launches {run['launches']}, expected {expected}")
+        MAIN_PATH_RUNS.append({int(b): n for b, n in run["launches"].items()})
+
+    with _deterministic():
+        trainer = _tp_trainer(TP_PARAMS_PATH, device, create_mesh())
+        allocated = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        state = trainer.init_state()
+        full = state.module.state_dict()
+        sharded = sorted(tp_sharded_keys(full, 2))
+        check(chief["sharded"] == sharded and len(sharded) == TP_SHARDED_KERNELS,
+              f"TP sharded {len(chief['sharded'])} kernels, JAX's rule {len(sharded)}, "
+              f"expected {TP_SHARDED_KERNELS}")
+        tables = trainer.training_tables(saved + TP_RESUME_STEPS, TRAIN_BATCH)
+        one = [float(trainer.train_step(state, tables, step)) for step in range(TP_STEPS)]
+        rel = [abs(a - b) / abs(b) for a, b in zip(chief["losses"], one)]
+        check(rel[0] < 1e-4, f"TP step 1 loss {chief['losses'][0]} against one rank's {one[0]}")
+        one_seconds = _timed_steps(trainer, state, tables, TP_STEPS, TP_TIMED_STEPS) / \
+            TP_TIMED_STEPS
+        one_peak = torch.cuda.max_memory_allocated() - allocated
+
+        # the ranks' checkpoint at full width, resumed in one rank
+        restored = restore_checkpoint(str(log_dir))
+        check(restored["step"] == saved and all(
+            restored["state_dict"][k].shape == v.shape for k, v in full.items()),
+            "the TP checkpoint is not the one-rank layout")
+        resumed = trainer.init_state()
+        resumed.restore(restored)
+        confusion = trainer.evaluate(resumed, "test").confusion
+        drain_differ = int(np.abs(np.asarray(chief["test"]) - confusion).sum()) // 2
+        check(drain_differ <= TP_DRAIN_DIFFER,
+              f"TP test drain: {drain_differ} of {n_test} windows differ from one rank's")
+        scene = SyntheticDataLoader(TP_SWEEP_SPEC).load_data(NEIGHBORHOOD, True)
+        sweep = _same_but_ties(np.load(map_path),
+                               predict_full_scene(resumed.module, scene, device=device),
+                               resumed.module, scene, device, "TP sweep")
+        resumed.module.train()
+        after = [float(trainer.train_step(resumed, tables, step))
+                 for step in range(saved, saved + TP_RESUME_STEPS)]
+        straight = [float(trainer.train_step(state, tables, step))
+                    for step in range(saved, saved + TP_RESUME_STEPS)]
+    resume_rel = max(abs(a - b) / abs(b) for a, b in zip(after, straight))
+    check(resume_rel < 1e-3, f"one rank resumed from the TP checkpoint: {after} against "
+                             f"uninterrupted {straight}")
+    emit({"phase": "tp_two_ranks_one_card", "mesh": {"data": 1, "model": 2},
+          "backend": "gloo", "config": str(TP_PARAMS_PATH.relative_to(ROOT)),
+          "global_batch": TRAIN_BATCH, "sharded_kernels": len(sharded), "sharded": sharded,
+          "losses": {"ranks": chief["losses"], "one_rank": one, "rel": rel},
+          "step_seconds": {"ranks": [r["step_seconds"] for r in (chief, other)],
+                           "one_rank": one_seconds,
+                           "note": "two ranks share one card through gloo's host staging: "
+                                   "not a measure of scaling"},
+          "channel_gathers_per_step": [r["channel_gathers_per_step"] for r in (chief, other)],
+          "gradient_sums_per_step": [r["gradient_sums_per_step"] for r in (chief, other)],
+          "step_peak_bytes": [r["step_peak_bytes"] for r in (chief, other)],
+          "peak_bytes": [r["peak_bytes"] for r in (chief, other)],
+          "one_rank_step_peak_bytes": one_peak,
+          "checkpoint_step": saved, "drain_windows_differ": drain_differ,
+          "drain_seconds": [r["drain_seconds"] for r in (chief, other)],
+          "sweep": {**sweep, "bands": TP_SWEEP_BANDS,
+                    "seconds": [r["sweep_seconds"] for r in (chief, other)],
+                    "channel_gathers": chief["sweep_channel_gathers"]},
+          "resume": {"resumed": after, "uninterrupted": straight, "max_rel": resume_rel},
+          "gather_launches_per_rank": expected})
+    return {"steps": 2 * saved, "drains": 2, "bands": 2 * TP_SWEEP_BANDS}
+
+
+def phase_tp_four_ranks(device, work: Path) -> dict:
+    """A (2, 2) mesh, four ranks on the one card over gloo, HYPELCNN at its
+    published 480 width, global batch 48: each data index's 24 windows,
+    the 8 sharded kernels, the losses against one rank on the card (step 1
+    within 1e-4), each rank's step time and collectives."""
+    root = work / "tp_four_ranks"
+    steps = TP4_STEPS + TP4_TIMED_STEPS
+    ranks = [r["tp"] for r in _launch_ranks(root, [{
+        "kind": "tp", "name": "tp", "model_parallel": 2, "params_path": str(PARAMS_PATH),
+        "steps": TP4_STEPS, "timed_steps": TP4_TIMED_STEPS}], nproc=4, deterministic=True)]
+    check([(r["data_rank"], r["model_rank"]) for r in ranks] == [(0, 0), (0, 1), (1, 0), (1, 1)],
+          "the (2, 2) mesh's ranks are not laid out as JAX lays out its devices")
+    check(all(r["losses"] == ranks[0]["losses"] for r in ranks), "the four ranks disagree")
+    expected = {str(TRAIN_BATCH // 2): steps}
+    for rank, run in enumerate(ranks):
+        check(run["launches"] == expected,
+              f"(2, 2) rank {rank}: gather launches {run['launches']}, expected {expected}")
+        MAIN_PATH_RUNS.append({int(b): n for b, n in run["launches"].items()})
+    with _deterministic():
+        trainer = _tp_trainer(PARAMS_PATH, device, create_mesh())
+        state = trainer.init_state()
+        sharded = sorted(tp_sharded_keys(state.module.state_dict(), 2))
+        tables = trainer.training_tables(TP4_STEPS, TRAIN_BATCH)
+        one = [float(trainer.train_step(state, tables, step)) for step in range(TP4_STEPS)]
+    check(ranks[0]["sharded"] == sharded and len(sharded) == TP4_SHARDED_KERNELS,
+          f"(2, 2) sharded {len(ranks[0]['sharded'])} kernels, JAX's rule {len(sharded)}")
+    rel = [abs(a - b) / abs(b) for a, b in zip(ranks[0]["losses"], one)]
+    check(rel[0] < 1e-4,
+          f"(2, 2) step 1 loss {ranks[0]['losses'][0]} against one rank's {one[0]}")
+    emit({"phase": "tp_data_model_four_ranks", "mesh": {"data": 2, "model": 2},
+          "backend": ranks[0]["backend"], "global_batch": TRAIN_BATCH,
+          "sharded_kernels": len(sharded),
+          "losses": {"ranks": ranks[0]["losses"], "one_rank": one, "rel": rel},
+          "step_seconds": [r["step_seconds"] for r in ranks],
+          "channel_gathers_per_step": [r["channel_gathers_per_step"] for r in ranks],
+          "gradient_sums_per_step": [r["gradient_sums_per_step"] for r in ranks],
+          "step_peak_bytes": [r["step_peak_bytes"] for r in ranks],
+          "gather_launches_per_rank": expected})
+    return {"steps": 4 * steps}
+
+
+def phase_search_two_ranks(device, work: Path, data) -> dict:
+    """The train CLI's search under torchrun, two ranks on the one card over
+    gloo: HYPELCNN's published JSON pinned but a log-uniform learning rate,
+    global batch 48, 2 trials of 20 steps. Both ranks run the trials the
+    chief drew, in the same log dirs; only the chief opens the study, whose
+    file alone is in the working directory."""
+    root = work / "search_ranks"
+    workdir = root / "run"
+    workdir.mkdir(parents=True)
+    space_path = root / "space.json"
+    space_path.write_text(json.dumps({**json.loads(PARAMS_PATH.read_text()),
+                                      "batch_size": TRAIN_BATCH,
+                                      "learning_rate": SEARCH_LEARNING_RATE}))
+    base = workdir / "classifier"
+    args = ["--device=cuda", "--loader_name=SyntheticDataLoader", f"--path={SPEC}",
+            "--model_name=HYPELCNNModel", "--importer_name=GeneratorImporter",
+            f"--neighborhood={NEIGHBORHOOD}", f"--train_ratio={TRAIN_RATIO}",
+            f"--test_ratio={TEST_RATIO}", f"--step={SEARCH_RANK_STEPS}",
+            f"--flag_config_file_opt={space_path}", "--opt_trial_count=2", "--opt_run_count=1",
+            f"--base_log_path={base}"]
+    chief, other = (r["search"] for r in _launch_ranks(root, [
+        {"kind": "search", "name": "search", "workdir": str(workdir), "args": args}], nproc=2))
+    check(chief["connects"] > 0 and other["connects"] == 0,
+          f"sqlite connections by rank: {chief['connects']}, {other['connects']}")
+    check(sorted(p.name for p in workdir.iterdir() if p.is_file()) == ["classification_opt.db"],
+          f"the search's working directory holds {sorted(p.name for p in workdir.iterdir())}")
+    rows = _study_rows(workdir / "classification_opt.db")
+    check([r[:2] for r in rows] == [("classification_opt", 0), ("classification_opt", 1)]
+          and all(0.0 <= r[2] <= 1.0 for r in rows), f"the two-rank study: {rows}")
+    check(chief["episodes"] == other["episodes"] and len(chief["episodes"]) == 2
+          and chief["trials"] == other["trials"]
+          and [t["params"] for t in chief["trials"]] == [json.loads(r[3]) for r in rows],
+          f"the ranks ran different trials: {chief['episodes']} / {other['episodes']}")
+    dirs = _trial_dirs(base)
+    check(sorted(str(d) for d in dirs) == sorted(e["log"] for e in chief["episodes"]),
+          f"trial log dirs {dirs} against the episodes' {chief['episodes']}")
+    counts = {split: data.targets(split).shape[0] for split in ("training", "test", "validation")}
+    expected = _expected_rank_launches(SEARCH_RANK_STEPS, counts, 2)
+    share = TRAIN_BATCH // 2
+    for rank, run in enumerate((chief, other)):
+        got = _rank_launches({"launches": run["total_launches"], "by_batch": run["launches"]},
+                             share)
+        want = {key: 2 * value for key, value in expected.items()}
+        check(got == want, f"search rank {rank}: gather launches {got}, expected {want}")
+        MAIN_PATH_RUNS.append({int(b): n for b, n in run["launches"].items()})
+    emit({"phase": "search_two_ranks", "ranks": 2, "steps": SEARCH_RANK_STEPS,
+          "global_batch": TRAIN_BATCH,
+          "trials": [{"number": r[1], "value": r[2], "params": json.loads(r[3])} for r in rows],
+          "episodes": chief["episodes"], "sqlite_connections": [chief["connects"], 0],
+          "rank_seconds": [chief["seconds"], other["seconds"]],
+          "gather_launches_per_rank": {key: 2 * value for key, value in expected.items()}})
+    share_steps = 2 * 2 * expected["steps"]
+    return {"share_steps": share_steps, "share_evals": 2 * 2 * expected["eval_batches"]}
 
 
 def phase_bf16(device, work: Path, data, train, families: dict) -> dict:
@@ -2812,7 +3131,8 @@ def _bands(device, count: int = 20) -> list:
 
 
 def phase_kernels(device, scene, launches: int, train, families: dict, loaders: dict,
-                  augmented_launches: int, later: dict, dist: dict, classic: dict) -> None:
+                  augmented_launches: int, later: dict, dist: dict, classic: dict,
+                  tp: dict) -> None:
     """Kernel rows; ``launches`` are the sweep's, ``train["launches"]`` the
     train CLI run's, split by batch size; ``families`` the family phases'
     results, with their launches by batch size; ``loaders`` the GULFPORT and
@@ -2820,8 +3140,10 @@ def phase_kernels(device, scene, launches: int, train, families: dict, loaders: 
     ``augmented_launches`` the GAN-augmented train CLI runs' steps';
     ``later`` the search, TF checkpoint, world-1, resume and bfloat16 train
     CLI runs' launches (``steps`` at the step's batch, ``eval_batches`` at
-    the drains'); ``dist`` the two-rank runs' launches at a rank's shares;
-    ``classic`` the classic-ML CLI's scene, coordinates and launches (k = 1)."""
+    the drains'); ``dist`` the two-rank runs' launches at a rank's shares
+    (the search under two ranks included); ``classic`` the classic-ML CLI's
+    scene, coordinates and launches (k = 1); ``tp`` the tensor-parallel
+    ranks' launches."""
     scene_dev = scene.device_scene(device)
     rows = [_gather_row(scene_dev, _bands(device), launches)]
     # the training path's shapes: the step's batch and the eval drain's
@@ -2849,6 +3171,18 @@ def phase_kernels(device, scene, launches: int, train, families: dict, loaders: 
                             " test drain's 1,663-window halves)"))
     rows.append(_gather_row(scene_dev, [c[:WIDTH * BATCH_ROWS // 2] for c in _bands(device)],
                             dist["half_bands"], " (a rank's half of a sweep band)"))
+    # the tensor-parallel ranks: each model rank gathers its data index's whole rows
+    rows.append(_gather_row(scene_dev, _training_batches(tables, 0, 21), tp["steps"],
+                            " (a (1, 2) mesh's rank: the whole training step, HYPELCNN-1200)"))
+    rows.append(_gather_row(scene_dev, [c[:TRAIN_BATCH // 2]
+                                        for c in _training_batches(tables, 0, 21)],
+                            tp["four_ranks_steps"],
+                            " (a (2, 2) mesh's rank: its data index's half of the step)"))
+    n_test = train["trainer"].sample_set.test_targets.shape[0]
+    rows.append(_gather_row(scene_dev, [c[:n_test] for c in eval_batches], tp["drains"],
+                            " (a (1, 2) mesh's rank: the whole test drain)"))
+    rows.append(_gather_row(scene_dev, _bands(device), tp["bands"],
+                            " (a (1, 2) mesh's rank: a whole sweep band)"))
     # a single window: the launch floor; its launches are those of every
     # main-path run at B = 1, and there should be none
     single = sum(run.get(1, 0) for run in MAIN_PATH_RUNS)
@@ -3012,6 +3346,13 @@ def main() -> int:
         dist = timed("dist_two_ranks_one_card", phase_dist_two_ranks, device, Path(work), data,
                      gan["pairs"])
         del gan["pairs"]
+        tp = timed("tp_two_ranks_one_card", phase_tp_two_ranks, device, Path(work), data)
+        tp["four_ranks_steps"] = timed("tp_data_model_four_ranks", phase_tp_four_ranks, device,
+                                       Path(work))["steps"]
+        searched_ranks = timed("search_two_ranks", phase_search_two_ranks, device, Path(work),
+                               data)
+        for key in ("share_steps", "share_evals"):
+            dist[key] += searched_ranks[key]
         bf16 = timed("bf16", phase_bf16, device, Path(work), data, train, families)
         timed("utilities", phase_utilities, device, Path(work),
               {"grss2013": root, "grss2018": Path(work) / "grss2018",
@@ -3021,7 +3362,7 @@ def main() -> int:
     later = {key: sum(run[key] for run in (searched, imported, world1, dist, bf16))
              for key in ("steps", "eval_batches")}
     timed("kernels", phase_kernels, device, scene, launches, train, families, loaders,
-          augmented["launches"], later, dist, classic)
+          augmented["launches"], later, dist, classic, tp)
     timed("profile", phase_profile, device, scene, module)
     timed("profile_train", phase_profile_train, train)
     torch.cuda.synchronize()

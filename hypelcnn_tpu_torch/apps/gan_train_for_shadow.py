@@ -32,8 +32,10 @@ runs a hyperparameter search instead: ``--opt_trial_count`` trials of
 space's suggestions laid over the flags, under ``<base_log_path>_<random
 suffix>``. A trial's score is the largest of its runs' mean divergences; the
 study ``gan_shadow_opt`` is kept in ``gan_shadow_opt.db`` in the working
-directory, and a rerun continues it. A search runs in one process: under
-more than one rank it raises.
+directory, and a rerun continues it. Under torchrun the chief alone opens
+the study, draws each trial's flags and run suffixes and records the value;
+every rank receives the draws and runs the same sessions
+(``tune/search.py``).
 """
 
 from __future__ import annotations
@@ -75,7 +77,7 @@ from hypelcnn_tpu_torch.parallel.distributed import (
 from hypelcnn_tpu_torch.parallel.mesh import create_mesh
 from hypelcnn_tpu_torch.train.checkpoint import restore_checkpoint, save_checkpoint, save_params
 from hypelcnn_tpu_torch.train.trainer import make_epoch_index_stream
-from hypelcnn_tpu_torch.tune.search import create_study, objective
+from hypelcnn_tpu_torch.tune.search import Study, create_study, objective
 from hypelcnn_tpu_torch.utils.text import replace_abbrs
 
 
@@ -265,19 +267,18 @@ def main(argv=None):
     if flags.flag_config_file:
         flags = merge_flag_config_json(flags, flags.flag_config_file)
     if flags.flag_config_file_opt:
-        if world_size() > 1:
-            raise ValueError("search mode (--flag_config_file_opt) runs in one process; under "
-                             f"{world_size()} ranks it is not ported (ROADMAP.md)")
         with open(flags.flag_config_file_opt, "r", encoding="utf-8") as fid:
             params_from_json_opt = json.load(fid)
-        print("Running on hyper parameter optimization mode")
+        if is_chief():
+            print("Running on hyper parameter optimization mode")
         objective_func = functools.partial(
             objective, params=dict(vars(flags)), params_from_json_opt=params_from_json_opt,
             opt_run_count=flags.opt_run_count,
             func_to_run=functools.partial(run_session, device=device),
-            base_log_path=flags.base_log_path)
+            base_log_path=flags.base_log_path, device=device)
         study = create_study("gan_shadow_opt", direction="minimize",
-                             storage="sqlite:///gan_shadow_opt.db")
+                             storage="sqlite:///gan_shadow_opt.db") if is_chief() \
+            else Study("gan_shadow_opt", direction="minimize")
         study.optimize(objective_func, n_trials=flags.opt_trial_count)
         return study
     if is_chief():

@@ -39,7 +39,9 @@ over them (not the modelconfig JSON: a model key the space does not pin
 takes the model's default). Its score is the worst run's ``1 -
 validation_accuracy``; the study ``classification_opt`` is kept in
 ``classification_opt.db`` in the working directory, and a rerun continues it.
-A search runs in one process: under more than one rank it raises.
+Under torchrun the chief alone opens the study, draws each trial's params
+and run suffixes and records the value; every rank receives the draws and
+runs the same episodes on the mesh (``tune/search.py``).
 """
 
 from __future__ import annotations
@@ -66,15 +68,10 @@ from hypelcnn_tpu_torch.core.registry import get_importer_from_name, get_model_f
 from hypelcnn_tpu_torch.core.rng import set_run_seed
 from hypelcnn_tpu_torch.data.augmentation import AugmentationInfo
 from hypelcnn_tpu_torch.gan.shadow_ops import build_shadow_creators
-from hypelcnn_tpu_torch.parallel.distributed import (
-    finalize_distributed,
-    is_chief,
-    join_rank,
-    world_size,
-)
+from hypelcnn_tpu_torch.parallel.distributed import finalize_distributed, is_chief, join_rank
 from hypelcnn_tpu_torch.parallel.mesh import create_mesh
 from hypelcnn_tpu_torch.train.trainer import ClassificationTrainer, TrainingResult
-from hypelcnn_tpu_torch.tune.search import create_study, objective
+from hypelcnn_tpu_torch.tune.search import Study, create_study, objective
 from hypelcnn_tpu_torch.utils.text import path_leaf, replace_abbrs
 
 
@@ -204,12 +201,10 @@ def main(argv=None):
 
     nn_model = get_model_from_name(flags.model_name)
     if flags.flag_config_file_opt:
-        if world_size() > 1:
-            raise ValueError("search mode (--flag_config_file_opt) runs in one process; under "
-                             f"{world_size()} ranks it is not ported (ROADMAP.md)")
         with open(flags.flag_config_file_opt, "r", encoding="utf-8") as fid:
             params_from_json_opt = json.load(fid)
-        print("Running in hyper parameter optimization mode")
+        if is_chief():
+            print("Running in hyper parameter optimization mode")
 
         def run_session(params, base_log_path):
             return [1 - perform_an_episode(flags, params, nn_model, base_log_path,
@@ -218,9 +213,10 @@ def main(argv=None):
         objective_func = functools.partial(
             objective, params=dict(vars(flags)), params_from_json_opt=params_from_json_opt,
             opt_run_count=flags.opt_run_count, func_to_run=run_session,
-            base_log_path=flags.base_log_path)
+            base_log_path=flags.base_log_path, device=device)
         study = create_study("classification_opt", direction="minimize",
-                             storage="sqlite:///classification_opt.db")
+                             storage="sqlite:///classification_opt.db") if is_chief() \
+            else Study("classification_opt", direction="minimize")
         study.optimize(objective_func, n_trials=flags.opt_trial_count)
         return study
     if is_chief():

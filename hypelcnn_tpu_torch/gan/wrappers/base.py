@@ -20,12 +20,14 @@
 
 Data parallelism (:meth:`GANTrainerBase.use_mesh`, the JAX package's
 ``use_mesh``): every rank is given the same global ``(x, y)`` batch and
-keeps its rows; each optimizer averages the ranks' gradients before its
-step, the reported losses are the global means, and a pool holds and swaps
-over the global batch of fakes, which every rank rebuilds by an all-reduce
-of zero-filled rows. The feature discriminator's norm is global
-(``gan/models.py``). The networks, optimizer states and pools stay equal on
-every rank.
+keeps its data index's rows; each optimizer averages the gradients over the
+data axis before its step, the reported losses are the global means, and a
+pool holds and swaps over the global batch of fakes, which every rank
+rebuilds by an all-reduce of zero-filled rows. The feature discriminator's
+norm is global (``gan/models.py``). The networks, optimizer states and pools
+stay equal on every rank: on a mesh with a model axis they stay replicated,
+as JAX's ``use_mesh`` places them, and the model ranks of one data index
+compute the same rows.
 
 Each sub-network's update differentiates only that sub-network's
 parameters (``torch.autograd.grad`` over its own tensors) and holds the
@@ -290,7 +292,7 @@ class GANTrainerBase:
         pool = state.pools[name]
         if not self._sharded():
             return pool.apply(data, inputs, generator, draws)
-        total = data.shape[0] * self.mesh.world_size
+        total = data.shape[0] * self.mesh.data_size
         rows = self.mesh.rows(total)
         both = self.mesh.gather_rows(torch.stack([data, inputs], dim=1), total, rows)
         pooled, pooled_inputs = pool.apply(both[:, 0], both[:, 1], generator, draws)

@@ -10,12 +10,14 @@ A ``MultiScene`` is swept through its member 0, as in the JAX package. A
 ``DualResScene`` has no fused device scene, so both functions raise on one
 (``DualResScene.device_scene``): the JAX package cannot sweep one either.
 
-With a :class:`~hypelcnn_tpu_torch.parallel.mesh.Mesh` of several ranks
-each band's pixels are split over the ranks, each rank gathers and
-classifies its slice, and the class map is the sum over the ranks of a
-zero-filled int map in which each rank wrote its own pixels (exact: each
-pixel has one writer). The model's batch-coupled layers (CAP) reduce over
-the whole band, so the map is the one-rank map.
+With a :class:`~hypelcnn_tpu_torch.parallel.mesh.Mesh` of several data
+ranks each band's pixels are split by data index, each rank gathers and
+classifies its slice, and the class map is the sum over the data axis of a
+zero-filled int map in which each data index wrote its own pixels (exact:
+each pixel has one writer). The model's batch-coupled layers (CAP) reduce
+over the whole band, so the map is the one-rank map. On a mesh with a model
+axis the module holds this rank's kernel slices (``shard_module_``): the
+model ranks of one data index compute the same pixels together.
 """
 
 from __future__ import annotations
@@ -69,7 +71,7 @@ def predict_full_scene(module, scene, batch_rows: int = 16, device="cuda",
     the clamped edge. ``gather`` is the window gather; the default launches
     the CUDA kernel on a CUDA scene, and ``gather_patches_torch`` gives the
     plain reference on the same device. ``mesh`` splits each band's pixels
-    over its ranks; every rank returns the whole map.
+    over its data axis; every rank returns the whole map.
     """
     device = torch.device(device)
     height, width = scene.get_scene_shape()

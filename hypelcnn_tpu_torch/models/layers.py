@@ -19,9 +19,13 @@ the promotion of its input with float32. Parameters stay float32. Batch norm
 takes its moments in float32 and normalizes in its ``dtype``.
 
 Under a :class:`~hypelcnn_tpu_torch.parallel.mesh.Mesh` of more than one
-rank (bound with ``bind_mesh``) batch norm's moments are those of the global
-batch, and dropout draws its mask over the global batch and keeps this
-rank's rows, so that the ranks compute what one process computes.
+data rank (bound with ``bind_mesh``) batch norm's moments are those of the
+global batch, and dropout draws its mask over the global batch and keeps
+this data index's rows, so that the ranks compute what one process computes.
+A ``SlimConv`` or ``SlimDense`` whose kernel holds a slice of its output
+channels (``shard_module_``, on a mesh with a model axis) computes those
+channels from the full input and gathers the others' before its bias,
+batch norm and activation, which see the full width on every model rank.
 """
 
 from __future__ import annotations
@@ -76,13 +80,31 @@ def _promote(x: torch.Tensor, dtype: Optional[torch.dtype]) -> torch.dtype:
 
 
 def _cast_product(op: Callable, x: torch.Tensor, weight: torch.Tensor,
-                  bias: Optional[torch.Tensor], dtype: torch.dtype) -> torch.Tensor:
+                  bias: Optional[torch.Tensor], dtype: torch.dtype,
+                  mesh: Optional[Mesh] = None) -> torch.Tensor:
     """``op(x, weight) + bias`` with every operand cast to ``dtype``, the bias
-    added after the product as flax adds it."""
-    y = op(x.to(dtype), weight.to(dtype))
+    added after the product as flax adds it. With ``mesh``, ``weight`` is
+    this model rank's slice of the output channels: the product's channels
+    are gathered over the model axis before the (full, replicated) bias."""
+    if mesh is None:
+        y = op(x.to(dtype), weight.to(dtype))
+    else:
+        y = mesh.gather_channels(op(mesh.model_input(x).to(dtype), weight.to(dtype)))
     if bias is None:
         return y
     return y + bias.to(dtype).view((1, -1) + (1,) * (y.dim() - 2))
+
+
+def _column_mesh(layer: nn.Module, weight: torch.Tensor, features: int) -> Optional[Mesh]:
+    """The mesh whose model axis ``layer``'s kernel is sharded over, or None
+    for a full kernel; a sliced kernel without such a mesh is an error."""
+    if weight.shape[0] == features:
+        return None
+    mesh = layer.mesh
+    if mesh is None or weight.shape[0] * mesh.model_parallel != features:
+        raise RuntimeError(f"a kernel of {weight.shape[0]} of {features} output channels needs "
+                           "a mesh whose model axis shards it")
+    return mesh
 
 
 @contextlib.contextmanager
@@ -172,6 +194,8 @@ class SlimBatchNorm(nn.Module):
 class SlimConv(nn.Module):
     """conv (SAME padding with an odd kernel, or VALID) -> [batch norm] -> activation."""
 
+    mesh = None
+
     def __init__(self, in_features: int, features: int, kernel: int,
                  activation: Optional[Callable] = torch.relu, use_batch_norm: bool = False,
                  bn_momentum: float = 0.95, padding: str = "SAME", kernel_init: str = "xavier",
@@ -197,11 +221,12 @@ class SlimConv(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dtype = _promote(x, self.dtype)
         conv = self.Conv_0
-        if dtype == torch.float32:
+        mesh = _column_mesh(self, conv.weight, conv.out_channels)
+        if dtype == torch.float32 and mesh is None:
             x = conv(x.to(dtype))
         else:
             x = _cast_product(lambda a, w: F.conv2d(a, w, padding=conv.padding), x, conv.weight,
-                              conv.bias, dtype)
+                              conv.bias, dtype, mesh)
         if self.BatchNorm_0 is not None:
             x = self.BatchNorm_0(x)
         if self.activation is not None:
@@ -218,6 +243,8 @@ class SlimConv(nn.Module):
 class SlimDense(nn.Module):
     """dense -> [batch norm] -> activation."""
 
+    mesh = None
+
     def __init__(self, in_features: int, features: int,
                  activation: Optional[Callable] = torch.relu, use_batch_norm: bool = False,
                  bn_momentum: float = 0.95, kernel_init: str = "xavier",
@@ -232,10 +259,12 @@ class SlimDense(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dtype = _promote(x, self.dtype)
-        if dtype == torch.float32:
-            x = self.Dense_0(x.to(dtype))
+        dense = self.Dense_0
+        mesh = _column_mesh(self, dense.weight, dense.out_features)
+        if dtype == torch.float32 and mesh is None:
+            x = dense(x.to(dtype))
         else:
-            x = _cast_product(F.linear, x, self.Dense_0.weight, self.Dense_0.bias, dtype)
+            x = _cast_product(F.linear, x, dense.weight, dense.bias, dtype, mesh)
         if self.BatchNorm_0 is not None:
             x = self.BatchNorm_0(x)
         if self.activation is not None:
@@ -254,8 +283,9 @@ class Dropout(nn.Module):
     zeros at rate 1), with its mask drawn from an explicit generator, never
     from torch's global state, in float32 whatever ``x``'s dtype. In
     training with a rate strictly between 0 and 1, a missing generator is an
-    error. On a mesh of several ranks the mask is drawn over the global
-    batch (this rank's rows times the ranks) and this rank's rows are kept."""
+    error. On a mesh of several data ranks the mask is drawn over the global
+    batch (this rank's rows times the data axis) and this data index's rows
+    are kept: the model ranks of one data index draw the same mask."""
 
     mesh = None
 
@@ -272,7 +302,7 @@ class Dropout(nn.Module):
             raise ValueError("train-mode dropout needs a generator")
         keep_prob = 1.0 - self.rate
         mesh = self.mesh or Mesh()
-        total = x.shape[0] * mesh.world_size
+        total = x.shape[0] * mesh.data_size
         u = torch.rand((total, *x.shape[1:]), generator=generator, device=x.device,
                        dtype=torch.float32)[mesh.rows(total)]
         keep = u < keep_prob

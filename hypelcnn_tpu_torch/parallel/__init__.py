@@ -1,1 +1,1 @@
-"""Data parallelism on ``torch.distributed`` (``hypelcnn_tpu/parallel``)."""
+"""Data and tensor parallelism on ``torch.distributed`` (``hypelcnn_tpu/parallel``)."""

@@ -13,13 +13,15 @@ they describe, and a run without them is left untouched.
   so ranks that share a card run ``gloo``, and the chief says so. A backend
   that cannot run raises; nothing moves to the CPU.
 - :func:`is_chief` is rank 0, the reference's ``is_chief = task == 0``: the
-  rank that writes summaries, CSVs and checkpoints.
+  rank that writes summaries, CSVs and checkpoints; :func:`from_chief` hands
+  a value the chief draws (a search trial's parameters) to every rank.
 """
 
 from __future__ import annotations
 
+import json
 import os
-from typing import Optional
+from typing import Any, Callable, Optional
 
 import torch
 import torch.distributed as dist
@@ -107,6 +109,24 @@ def rank() -> int:
 def is_chief() -> bool:
     """Whether this process writes summaries, CSVs and checkpoints."""
     return rank() == 0
+
+
+def from_chief(draw: Callable[[], Any], device="cpu") -> Any:
+    """``draw()`` called on the chief alone and its value, a JSON value,
+    broadcast to every rank as UTF-8 bytes in a tensor on ``device`` (the
+    rank's device: NCCL broadcasts CUDA tensors only); without a group,
+    ``draw()``."""
+    if world_size() == 1:
+        return draw()
+    device = torch.device(device)
+    payload = json.dumps(draw()).encode() if is_chief() else b""
+    size = torch.tensor([len(payload)], dtype=torch.int64, device=device)
+    dist.broadcast(size, src=0)
+    data = torch.zeros(int(size.item()), dtype=torch.uint8, device=device)
+    if payload:
+        data.copy_(torch.frombuffer(bytearray(payload), dtype=torch.uint8))
+    dist.broadcast(data, src=0)
+    return json.loads(bytes(data.cpu().numpy()).decode())
 
 
 def local_batch_slice(global_batch: int) -> int:

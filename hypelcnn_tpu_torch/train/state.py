@@ -1,14 +1,22 @@
 """Training state (``hypelcnn_tpu/train/state.py``): the step count, the module
 (parameters and batch-norm statistics), the optimizer with its state, and the
-learning-rate schedule, which is a function of the step count."""
+learning-rate schedule, which is a function of the step count.
+
+Under tensor parallelism the parameters named in ``sharded`` hold this model
+rank's slice of their output channels, and so do their optimizer moments. A
+checkpoint holds full tensors all the same: :meth:`TrainState.checkpoint`
+gathers the shards over the model axis (every rank calls it) and
+:meth:`TrainState.restore` cuts this rank's slice of each, so a checkpoint
+moves between any mesh and one rank."""
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Dict
+from typing import Any, Callable, Dict, FrozenSet, Optional
 
 import torch
 
+from hypelcnn_tpu_torch.parallel.mesh import Mesh
 from hypelcnn_tpu_torch.train.optimizer import Schedule
 
 
@@ -28,6 +36,8 @@ class TrainState:
     module: torch.nn.Module
     optimizer: torch.optim.Optimizer
     schedule: Schedule
+    mesh: Optional[Mesh] = None
+    sharded: FrozenSet[str] = frozenset()  # parameters sliced over the mesh's model axis
 
     def learning_rate(self) -> float:
         """The rate of the next update: the schedule at the count before it."""
@@ -41,16 +51,40 @@ class TrainState:
         self.optimizer.step()
         self.step += 1
 
+    def _per_shard(self, state_dict: Dict[str, Any], optimizer: Dict[str, Any],
+                   fn: Callable[[torch.Tensor], torch.Tensor]):
+        """``fn`` applied to each sharded parameter and to its optimizer
+        moments (the per-parameter tensors of one or more dims)."""
+        names = [name for name, _ in self.module.named_parameters()]
+        state_dict = {k: fn(v) if k in self.sharded else v for k, v in state_dict.items()}
+        moments = {index: {k: fn(v) if names[index] in self.sharded
+                           and isinstance(v, torch.Tensor) and v.dim() else v
+                           for k, v in entry.items()}
+                   for index, entry in optimizer["state"].items()}
+        return state_dict, {**optimizer, "state": moments}
+
+    def parameters(self) -> Dict[str, torch.Tensor]:
+        """Every parameter at full width (sharded ones gathered: every rank calls this)."""
+        return {name: self.mesh.gather_shards(p.detach()) if name in self.sharded else p.detach()
+                for name, p in self.module.named_parameters()}
+
     def checkpoint(self) -> Dict[str, Any]:
-        """What a checkpoint holds, on the CPU: the step, the module's
-        ``state_dict`` and the optimizer's state. The step is also the
-        schedule's position."""
-        return {"step": self.step,
-                "state_dict": _to_cpu(self.module.state_dict()),
-                "optimizer": _to_cpu(self.optimizer.state_dict())}
+        """What a checkpoint holds, on the CPU, at full width: the step, the
+        module's ``state_dict`` and the optimizer's state. The step is also
+        the schedule's position."""
+        state_dict, optimizer = self.module.state_dict(), self.optimizer.state_dict()
+        if self.sharded:
+            state_dict, optimizer = self._per_shard(state_dict, optimizer,
+                                                    self.mesh.gather_shards)
+        return {"step": self.step, "state_dict": _to_cpu(state_dict),
+                "optimizer": _to_cpu(optimizer)}
 
     def restore(self, checkpoint: Dict[str, Any]) -> None:
         """Load a :meth:`checkpoint` dict; tensors go to the module's device."""
-        self.module.load_state_dict(checkpoint["state_dict"], strict=True)
-        self.optimizer.load_state_dict(checkpoint["optimizer"])
+        state_dict, optimizer = checkpoint["state_dict"], checkpoint["optimizer"]
+        if self.sharded:
+            state_dict, optimizer = self._per_shard(state_dict, optimizer,
+                                                    lambda t: self.mesh.shard(t).clone())
+        self.module.load_state_dict(state_dict, strict=True)
+        self.optimizer.load_state_dict(optimizer)
         self.step = int(checkpoint["step"])

@@ -28,10 +28,21 @@ that W ranks compute what one process computes on the same global batch,
 up to the order of float sums. Batch norm's moments and CAP's routing are
 global (``parallel/mesh.py``); each step averages the ranks' gradients and
 losses in one all-reduce. An eval drain pads its batch to a multiple of the
-ranks, each rank drains its share and the int64 confusion is summed. The
+data axis, each data index drains its share and the int64 confusion is
+summed over the data axis. The
 chief alone writes summaries, CSVs, history and checkpoints, and every rank
 waits at a barrier after a save; a checkpoint holds the replicated state and
 the global step, so it resumes into any world size.
+
+Tensor parallelism (a ``mesh`` with a model axis, as JAX's trainer takes
+``mesh=create_mesh(model_parallel=...)``): ``init_state`` keeps each rank's
+slice of the wide kernels (``parallel/mesh.py`` ``shard_module_``, JAX's
+``shard_params_for_tp``), and their Adam moments follow them. The data
+axis deals the rows, draws, drains, gradient means and confusion sums as
+above; the model ranks of one data index share their rows. A checkpoint
+and the logged histograms hold full tensors, gathered over the model axis
+first, and a restore cuts each rank's slice again
+(``train/state.py``).
 
 ``algorithm_params["remat"]`` recomputes the forward pass in the backward
 (``torch.utils.checkpoint``) instead of keeping its activations, as the
@@ -64,7 +75,13 @@ from hypelcnn_tpu_torch.data.importers import ScenePatchSource
 from hypelcnn_tpu_torch.data.loaders.base import SampleSet
 from hypelcnn_tpu_torch.models.base import NNModel
 from hypelcnn_tpu_torch.models.layers import init_parameters, running_stats_frozen
-from hypelcnn_tpu_torch.parallel.mesh import Mesh, bind_mesh, create_mesh, pad_to_multiple
+from hypelcnn_tpu_torch.parallel.mesh import (
+    Mesh,
+    bind_mesh,
+    create_mesh,
+    pad_to_multiple,
+    shard_module_,
+)
 from hypelcnn_tpu_torch.train.checkpoint import restore_checkpoint, save_checkpoint
 from hypelcnn_tpu_torch.train.metrics import MetricsResult, compute_metrics, confusion_update
 from hypelcnn_tpu_torch.train.optimizer import build_optimizer
@@ -148,18 +165,22 @@ class ClassificationTrainer:
     # ---- setup ----
 
     def init_state(self, state_dict: Optional[Dict[str, torch.Tensor]] = None) -> TrainState:
-        """A fresh state on the device: weights from ``state_dict`` when given,
-        else the JAX package's initializers drawn from the seed."""
+        """A fresh state on the device: weights from ``state_dict`` (full
+        width) when given, else the JAX package's initializers drawn from the
+        seed; on a mesh with a model axis, each wide kernel cut to this rank's
+        slice."""
         module = self.model.create_module(self.class_count, self.algorithm_params,
                                           self.data_shape)
         if state_dict is None:
             init_parameters(module, self.rng_pool.generator("init", 0, "cpu"))
         else:
             module.load_state_dict(state_dict, strict=True)
+        sharded = shard_module_(module, self.mesh)  # none without a model axis
         bind_mesh(module, self.mesh)
         module.to(self.device).train()
         optimizer, schedule = build_optimizer(self.algorithm_params, module.parameters())
-        return TrainState(step=0, module=module, optimizer=optimizer, schedule=schedule)
+        return TrainState(step=0, module=module, optimizer=optimizer, schedule=schedule,
+                          mesh=self.mesh, sharded=frozenset(sharded))
 
     def training_tables(self, num_steps: int, batch_size: int) -> TrainingTables:
         """The index stream and target tables, sent to the device once."""
@@ -252,8 +273,8 @@ class ClassificationTrainer:
         if cache_key not in self._eval_tables:
             for key in [k for k in self._eval_tables if k[:2] == (split, batch_size)]:
                 del self._eval_tables[key]
-            # the batch divides over the ranks; a small split shrinks to one batch
-            eff_batch = pad_to_multiple(min(batch_size, n), self.mesh.world_size)
+            # the batch divides over the data axis; a small split shrinks to one batch
+            eff_batch = pad_to_multiple(min(batch_size, n), self.mesh.data_size)
             num_batches = math.ceil(n / eff_batch)
             total = num_batches * eff_batch
             # pad by wrapping to real samples, not zeros: a model whose eval
@@ -311,8 +332,10 @@ class ClassificationTrainer:
                     print(f"Resuming from checkpoint at step {resume_step}")
 
         def save() -> None:
-            if chief:
-                save_checkpoint(self.log_dir, **state.checkpoint())
+            if chief or state.sharded:  # the shards are gathered by every rank
+                payload = state.checkpoint()
+                if chief:
+                    save_checkpoint(self.log_dir, **payload)
             self.mesh.barrier()  # no rank reads a checkpoint before it exists
 
         tables = self.training_tables(num_steps, batch_size)
@@ -340,8 +363,8 @@ class ClassificationTrainer:
                 if writer:
                     writer.scalar("loss", last_loss, end)
                     writer.scalar("learning_rate", state.schedule(end), end)
-                    if self.log_model_params:
-                        self._log_param_histograms(writer, state, end)
+                if self.log_model_params and (writer or state.sharded):
+                    self._log_param_histograms(writer, state, end)
 
             if crossed(self.test_cadence, start, end) and end != num_steps and n_test > 0:
                 test_metrics = self.evaluate(state, "test")
@@ -390,12 +413,16 @@ class ClassificationTrainer:
             final_state=state,
             steps_run=num_steps - resume_step)
 
-    def _log_param_histograms(self, writer: SummaryWriter, state: TrainState, step: int) -> None:
-        """Histogram every parameter and batch-norm statistic."""
-        module = state.module
-        for name, tensor in module.named_parameters():
-            writer.histogram("params/" + name.replace(".", "/"), tensor.detach().cpu().numpy(),
-                             step)
-        for name, tensor in module.named_buffers():
+    def _log_param_histograms(self, writer: Optional[SummaryWriter], state: TrainState,
+                              step: int) -> None:
+        """Histogram every parameter, at full width, and batch-norm statistic.
+        Every rank calls this under tensor parallelism, where the shards are
+        gathered; only the chief has a ``writer``."""
+        params = state.parameters()
+        if writer is None:
+            return
+        for name, tensor in params.items():
+            writer.histogram("params/" + name.replace(".", "/"), tensor.cpu().numpy(), step)
+        for name, tensor in state.module.named_buffers():
             writer.histogram("batch_stats/" + name.replace(".", "/"),
                              tensor.detach().cpu().numpy(), step)

@@ -1,4 +1,4 @@
-"""Hyperparameter search (``hypelcnn_tpu/tune/search.py``), stdlib and sqlite3 only.
+"""Hyperparameter search (``hypelcnn_tpu/tune/search.py``) on the stdlib and sqlite3.
 
 A search-space JSON grammar: a dict with ``min``/``max`` (optionally
 ``step``, ``log``) suggests a float or an int by the type of its bounds, a
@@ -14,6 +14,14 @@ drawn around the best-quantile trials' values (a truncated Gaussian per
 dimension, a categorical by frequency), with sqlite persistence that a rerun
 loads. A study with a ``seed`` draws trial ``n`` from
 ``random.Random(seed + n)``, so two seeded studies suggest the same values.
+
+Under several ranks (torchrun) one search runs over all of them: the chief
+alone holds the study with its storage, draws each trial's parameters and
+each run's log-dir suffix, and records the value; :func:`objective` hands
+the draws to every rank (``parallel/distributed.py`` ``from_chief``), every
+rank runs the same episodes on the mesh, and every rank returns the
+chief's value. The other ranks optimize an in-memory :class:`Study` whose
+trials take the chief's suggestions.
 """
 
 from __future__ import annotations
@@ -26,6 +34,8 @@ import sqlite3
 import string
 from statistics import mean
 from typing import Any, Callable, Dict, List, Optional
+
+from hypelcnn_tpu_torch.parallel.distributed import from_chief, is_chief
 
 try:  # pragma: no cover - exercised only where optuna exists
     import optuna as _optuna
@@ -275,18 +285,26 @@ def apply_search_space(trial, params: Dict[str, Any],
 
 
 def objective(trial, params: Dict[str, Any], params_from_json_opt: Dict[str, Any],
-              func_to_run: Callable, opt_run_count: int, base_log_path: str) -> float:
+              func_to_run: Callable, opt_run_count: int, base_log_path: str,
+              device="cpu") -> float:
     """Run ``func_to_run`` ``opt_run_count`` times on the trial's params, each
     under ``base_log_path`` plus an unseeded random suffix; the max of the
-    runs' mean losses."""
-    params = apply_search_space(trial, dict(params), params_from_json_opt)
+    runs' mean losses. Under several ranks the chief's ``trial`` draws the
+    params and the suffixes, which reach every rank by a broadcast on
+    ``device``, and the chief's value is returned everywhere."""
+    searched, suggested = from_chief(
+        lambda: (apply_search_space(trial, {}, params_from_json_opt), dict(trial.params)),
+        device)
+    if not is_chief():
+        trial.params = suggested
+    params = {**params, **searched}
     losses = []
     for run_idx in range(opt_run_count):
-        trial_postfix = "_" + "".join(
-            random.choices(string.ascii_lowercase + string.digits, k=5))
+        trial_postfix = from_chief(lambda: "_" + "".join(
+            random.choices(string.ascii_lowercase + string.digits, k=5)), device)
         print(f"Starting run#{run_idx}")
         losses.append(mean(func_to_run(params=params,
                                        base_log_path=base_log_path + trial_postfix)))
     print("Trial runs are completed. Losses:")
     print(*losses, sep=",")
-    return max(losses)
+    return from_chief(lambda: max(losses), device)

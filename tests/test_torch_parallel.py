@@ -1,14 +1,14 @@
 """The PyTorch port's distributed runtime and mesh in one process (no group).
 
-The multi-process behaviour is in ``test_torch_multiprocess.py`` and
-``test_torch_multiprocess_gan.py``.
+The multi-process behaviour is in ``test_torch_multiprocess.py``,
+``test_torch_multiprocess_gan.py``, ``test_torch_tensor_parallel.py`` and
+``test_torch_search_ranks.py``.
 """
 
 import pytest
 import torch
 import torch.distributed as dist
 
-from hypelcnn_tpu_torch.apps import gan_train_for_shadow, train_for_classification
 from hypelcnn_tpu_torch.parallel import distributed
 from hypelcnn_tpu_torch.parallel.mesh import (
     DATA_AXIS,
@@ -19,6 +19,7 @@ from hypelcnn_tpu_torch.parallel.mesh import (
     create_mesh,
     pad_to_multiple,
     shard_params_for_tp,
+    tp_sharded_keys,
 )
 from hypelcnn_tpu_torch.models.hypelcnn import HYPELCNNModel
 from hypelcnn_tpu_torch.models.layers import Dropout, SlimBatchNorm
@@ -80,13 +81,50 @@ def test_rank_device(monkeypatch):
     assert distributed.rank_device("cuda") == torch.device("cuda", 1)
 
 
-def test_tensor_parallelism_is_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        create_mesh(model_parallel=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        shard_params_for_tp({}, create_mesh())
-    with pytest.raises(ValueError):
-        create_mesh(model_parallel=0)
+@pytest.mark.parametrize("model_parallel, match", [
+    (0, "at least 1"),
+    (2, "does not divide device count 1"),  # JAX's create_mesh's check
+])
+def test_a_model_axis_must_divide_the_ranks(model_parallel, match):
+    with pytest.raises(ValueError, match=match):
+        create_mesh(model_parallel=model_parallel)
+
+
+def test_a_two_axis_mesh_deals_rows_by_data_index():
+    """Rank r of data x model has data index r // model and model index
+    r % model, as JAX reshapes the devices (n // mp, mp)."""
+    meshes = [Mesh(6, r, model_parallel=3) for r in range(6)]
+    assert meshes[4].shape == {DATA_AXIS: 2, MODEL_AXIS: 3}
+    assert [(m.data_rank, m.model_rank) for m in meshes] == \
+        [(0, 0), (0, 1), (0, 2), (1, 0), (1, 1), (1, 2)]
+    assert [m.rows(8) for m in meshes] == [slice(0, 4)] * 3 + [slice(4, 8)] * 3
+    assert [m.split(5) for m in meshes] == [slice(0, 3)] * 3 + [slice(3, 5)] * 3
+    assert meshes[0].sharded and meshes[0].tensor_parallel
+    assert not Mesh(2, 1, model_parallel=2).sharded
+    full = torch.arange(12.0).reshape(6, 2)
+    assert torch.equal(meshes[2].shard(full), full[4:6])
+    with pytest.raises(ValueError, match="does not divide"):
+        Mesh(4, 0, model_parallel=3)
+    with pytest.raises(RuntimeError, match="subgroups"):
+        meshes[0].all_reduce_(torch.ones(2))
+
+
+def test_shard_params_for_tp_keeps_a_model_rank_slice():
+    """JAX's rule on the port's names: a Conv_0 or Dense_0 kernel whose output
+    channels number at least min_width and divide over the axis."""
+    state = {"a.Conv_0.weight": torch.arange(64.0 * 3).reshape(64, 3, 1, 1),
+             "a.Conv_0.bias": torch.zeros(64),
+             "b.Dense_0.weight": torch.zeros(66, 4),
+             "c.Dense_0.weight": torch.zeros(32, 4),
+             "d_fused.conv1x1_kernel": torch.zeros(64, 3, 1, 1),
+             "digitcaps_w": torch.zeros(64, 64, 64)}
+    mesh = Mesh(4, 3, model_parallel=4)
+    sharded = shard_params_for_tp(state, mesh)
+    assert torch.equal(sharded["a.Conv_0.weight"], state["a.Conv_0.weight"][48:])
+    assert all(sharded[k] is state[k] for k in state if k != "a.Conv_0.weight")
+    assert tp_sharded_keys(state, 2) == ["a.Conv_0.weight", "b.Dense_0.weight"]
+    assert tp_sharded_keys(state, 1) == []
+    assert shard_params_for_tp(state, create_mesh()) == state
 
 
 def test_one_rank_mesh_runs_no_collective():
@@ -140,16 +178,3 @@ def test_bind_mesh_reaches_every_batch_coupled_layer():
     assert all(m.mesh is None for m in coupled)
     bind_mesh(module, mesh)
     assert all(m.mesh is mesh for m in coupled)
-
-
-@pytest.mark.parametrize("main, args", [
-    (train_for_classification.main, ["--loader_name=SyntheticDataLoader"]),
-    (gan_train_for_shadow.main, ["--loader_name=SyntheticDataLoader"]),
-])
-def test_search_mode_under_several_ranks_raises(monkeypatch, tmp_path, main, args):
-    module = __import__(main.__module__, fromlist=["world_size"])
-    monkeypatch.setattr(module, "world_size", lambda: 2)
-    with pytest.raises(ValueError, match="ROADMAP"):
-        main([*args, "--device=cpu", f"--flag_config_file_opt={tmp_path / 'space.json'}",
-              f"--base_log_path={tmp_path / 'run'}"])
-    assert not any(tmp_path.iterdir())

@@ -12,21 +12,34 @@ to files first.
 
 Tasks (``kind``):
 
-- ``train``: a ``ClassificationTrainer`` on the mesh of every rank, its
-  data read as the parent reads it; ``fit`` for ``steps`` steps with the
-  loss logged every step. Result: the losses, test and validation OA, the
-  final ``state_dict``, the step, this process's id.
-- ``sweep``: ``predict_full_scene`` on the mesh. Result: the class map.
+Every task runs on the mesh of every rank with ``model_parallel`` model
+ranks (1 when the task does not say; each mesh is made once, in the order of
+the tasks, so every rank makes the same subgroups).
+
+- ``train``: a ``ClassificationTrainer`` on the mesh, its data read as the
+  parent reads it; ``fit`` for ``steps`` steps with the loss logged every
+  step. Result: the losses, test and validation OA, the final
+  ``state_dict`` at full width (gathered over the model axis) and this
+  rank's own replicated tensors, the sharded keys, the step, this
+  process's id.
+- ``sweep``: ``predict_full_scene`` on the mesh, the module's wide kernels
+  sharded over its model axis. Result: the class map.
 - ``gan``: a GAN trainer of the registry on the mesh, ``train_step`` on the
   given global batches (with injected pool draws when given). Result: each
   step's metrics, the final networks, and whether ``translate`` gives the
   same pixels with and without the mesh.
+- ``search``: a train CLI's ``main`` (``train`` or ``gan``) on ``argv`` in
+  ``workdir``, its study seeded with ``seed``. Result: the study's trials,
+  the searched params and log dir each episode was handed, and how many
+  sqlite connections this rank opened.
 """
 
 from __future__ import annotations
 
+import functools
 import json
 import os
+import random
 import sys
 
 import numpy as np
@@ -34,6 +47,7 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
+from hypelcnn_tpu_torch.apps import gan_train_for_shadow, train_for_classification  # noqa: E402
 from hypelcnn_tpu_torch.core.registry import get_importer_from_name, get_model_from_name  # noqa: E402
 from hypelcnn_tpu_torch.data.augmentation import AugmentationInfo  # noqa: E402
 from hypelcnn_tpu_torch.data.loaders.synthetic import SyntheticDataLoader  # noqa: E402
@@ -44,8 +58,9 @@ from hypelcnn_tpu_torch.parallel.distributed import (  # noqa: E402
     initialize_distributed,
     rank,
 )
-from hypelcnn_tpu_torch.parallel.mesh import create_mesh  # noqa: E402
+from hypelcnn_tpu_torch.parallel.mesh import create_mesh, shard_module_  # noqa: E402
 from hypelcnn_tpu_torch.train.trainer import ClassificationTrainer  # noqa: E402
+from hypelcnn_tpu_torch.tune import search  # noqa: E402
 
 AUGMENTATION = AugmentationInfo(perform_rotation_augmentation=True,
                                 perform_reflection_augmentation=True,
@@ -74,10 +89,13 @@ def run_train(task: dict, mesh) -> dict:
     result = trainer.fit(task["steps"], task["batch"], log_every=1,
                          progress_callback=lambda step, loss: losses.append(loss),
                          state_dict=_load(task.get("state_dict")))
+    state = result.final_state
     return {"losses": losses, "test_oa": result.test_accuracy,
-            "val_oa": result.validation_accuracy, "step": result.final_state.step,
-            "state": {k: v.clone() for k, v in result.final_state.module.state_dict().items()},
-            "pid": os.getpid()}
+            "val_oa": result.validation_accuracy, "step": state.step,
+            "state": state.checkpoint()["state_dict"],
+            "own": {k: v.clone() for k, v in state.module.state_dict().items()
+                    if k not in state.sharded},
+            "sharded": sorted(state.sharded), "pid": os.getpid()}
 
 
 def run_sweep(task: dict, mesh) -> dict:
@@ -86,6 +104,7 @@ def run_sweep(task: dict, mesh) -> dict:
     module = model.create_module(task["classes"], {**model.default_params(), **task["params"]},
                                  scene.get_data_shape())
     module.load_state_dict(_load(task["state_dict"]), strict=True)
+    shard_module_(module, mesh)
     return {"map": torch.from_numpy(predict_full_scene(
         module, scene, batch_rows=task["batch_rows"], device="cpu", mesh=mesh))}
 
@@ -115,7 +134,42 @@ def run_gan(task: dict, mesh) -> dict:
             "state": {k: v.clone() for k, v in state.nets.state_dict().items()}}
 
 
-RUNNERS = {"train": run_train, "sweep": run_sweep, "gan": run_gan}
+def run_search(task: dict, mesh) -> dict:
+    """The CLI's search with its study seeded, the episodes and sqlite
+    connections of this rank recorded (the module attributes restored after)."""
+    app = {"train": train_for_classification, "gan": gan_train_for_shadow}[task["app"]]
+    episode_name = {"train": "perform_an_episode", "gan": "run_session"}[task["app"]]
+    episode, create, connect = (getattr(app, episode_name), app.create_study,
+                                search.sqlite3.connect)
+    episodes, connects = [], []
+
+    def recorded(*args, **kwargs):
+        params = kwargs["params"] if "params" in kwargs else args[1]
+        log = kwargs["base_log_path"] if "base_log_path" in kwargs else args[3]
+        episodes.append({"params": {k: params[k] for k in task["searched"]}, "log": log})
+        return episode(*args, **kwargs)
+
+    def counted(*args, **kwargs):
+        connects.append(args[0])
+        return connect(*args, **kwargs)
+
+    setattr(app, episode_name, recorded)
+    app.create_study = functools.partial(create, seed=task["seed"])
+    search.sqlite3.connect = counted
+    before = os.getcwd()
+    os.chdir(task["workdir"])
+    random.seed(0)  # the run suffixes, which the chief alone draws
+    try:
+        study = app.main(task["argv"])
+    finally:
+        os.chdir(before)
+        setattr(app, episode_name, episode)
+        app.create_study = create
+        search.sqlite3.connect = connect
+    return {"trials": study.trials, "episodes": episodes, "connects": len(connects)}
+
+
+RUNNERS = {"train": run_train, "sweep": run_sweep, "gan": run_gan, "search": run_search}
 
 
 def main() -> None:
@@ -123,10 +177,15 @@ def main() -> None:
         spec = json.load(fid)
     torch.set_num_threads(1)
     assert initialize_distributed(device="cpu")
-    mesh = create_mesh()
-    results = {task["name"]: RUNNERS[task["kind"]](task, mesh) for task in spec["tasks"]}
+    meshes = {}
+    results = {}
+    for task in spec["tasks"]:
+        model_parallel = task.get("model_parallel", 1)
+        if model_parallel not in meshes:
+            meshes[model_parallel] = create_mesh(model_parallel)
+        results[task["name"]] = RUNNERS[task["kind"]](task, meshes[model_parallel])
     torch.save(results, os.path.join(spec["out"], f"rank{rank()}.pt"))
-    mesh.barrier()
+    create_mesh().barrier()
     finalize_distributed()
 
 
