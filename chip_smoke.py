@@ -7,10 +7,14 @@ Needs one CUDA device and ``nvcc``; exits non-zero, printing no result,
 without them. Phases, one JSON line each:
 
 1. ``device``: the card's name and power limit.
-2. ``build``: every kernel source built with ``nvcc`` (in parallel).
+2. ``build``: every kernel source built with ``nvcc`` (in parallel), with
+   ptxas's report of each kernel's registers, shared memory and spills.
 3. ``kernel_vs_plain``: the CUDA window gather held bit for bit against its
    plain PyTorch version, k in {1, 3, 5, 7, 9}, C in {12, 65, 145, 360},
-   B in {1, 129, 30480}, with out-of-range and negative coordinates.
+   B in {1, 129, 30480}, with out-of-range and negative coordinates; then
+   C in {1, 2, 3, 5} at k in {1, 3, 5, 9} and B in {0, ..., 4, 129} (every
+   residue of B*k*k*C mod 4), and k = 9, C = 360, B = 73,700: 2,149,092,000
+   output floats (8.6 GB, the 64-bit index path), freed after.
 4. ``infer_all``: ``infer_for_classification --domain=all --device=cuda`` at
    the full width of ``configs/modelconfigs/alg_param_hypelcnn.json`` over a
    GRSS2013-size synthetic scene (349 x 1905, 144 bands plus LiDAR, 15
@@ -236,9 +240,11 @@ steps too, and the eval row their drains; three rows give a rank's halves
 of the training step, of an eval batch and of a sweep band (with the
 search under two ranks), four the tensor-parallel ranks' shapes (a (1, 2)
 rank's whole step, test drain and band, a (2, 2) rank's half step), and
-one a single window (the launch floor, with the main path's launches at
-B = 1, which must be none). A last line before the result gives each
-phase's seconds.
+one a single window (the smallest launch, with the main path's launches at
+B = 1, which must be none). Before the rows, a ``launch_floor`` line times
+an empty kernel (``torch.cuda._sleep(0)``) as the rows are timed, and each
+row carries that floor as ``floor_ms``. A last line before the result gives
+each phase's seconds.
 
 The last line is ``{"ok": true, "device": {...}}``. Any failure raises.
 """
@@ -461,8 +467,10 @@ def phase_build() -> None:
         paths = list(pool.map(build.build, SOURCES))
     for name in SOURCES:
         build.load(name)
+    # each kernel's registers, shared memory and spills, as ptxas reported them
     emit({"phase": "build", "seconds": time.perf_counter() - start,
-          "libraries": [str(p.relative_to(ROOT)) for p in paths]})
+          "libraries": [str(p.relative_to(ROOT)) for p in paths],
+          "ptxas": {name: build.ptxas_report(name) for name in SOURCES}})
 
 
 def phase_kernel_vs_plain(device) -> None:
@@ -488,8 +496,48 @@ def phase_kernel_vs_plain(device) -> None:
                       f"window_gather differs from its plain version at k={k}, "
                       f"C={channels}, B={batch}")
                 cases += 1
+    # fewer channels than a 16-byte chunk, every residue of B*k*k*C mod 4 (the
+    # scalar tail), and no windows at all
+    residues = set()
+    for channels in (1, 2, 3, 5):
+        scene = torch.randn((9, 11, channels), generator=gen, device=device)
+        for k in (1, 3, 5, 9):
+            for batch in (0, 1, 2, 3, 4, 129):
+                coords = _wild_coords(gen, batch, 9, 11, device)
+                got = window_gather_cuda(scene, coords, k)
+                torch.cuda.synchronize()
+                check(got.shape == (batch, k, k, channels)
+                      and torch.equal(got, gather_patches_torch(scene, coords, k)),
+                      f"window_gather differs from its plain version at k={k}, "
+                      f"C={channels}, B={batch}")
+                residues.add(batch * k * k * channels % 4)
+                cases += 1
+    check(residues == {0, 1, 2, 3}, f"residues of B*k*k*C mod 4 covered: {residues}")
+    # past 2^31 output floats (8.6 GB; the 64-bit index path), compared a
+    # slice of windows at a time, then freed
+    batch, k, channels = 73_700, 9, 360
+    scene = torch.randn((40, 60, channels), generator=gen, device=device)
+    coords = _wild_coords(gen, batch, 40, 60, device)
+    got = window_gather_cuda(scene, coords, k)
     torch.cuda.synchronize()
-    emit({"phase": "kernel_vs_plain", "cases": cases, "max_abs_err": 0.0, "exact": True})
+    check(got.numel() > 2 ** 31, f"the wide case has {got.numel()} floats")
+    for start in range(0, batch, 8192):
+        check(torch.equal(got[start:start + 8192],
+                          gather_patches_torch(scene, coords[start:start + 8192], k)),
+              f"window_gather differs from its plain version past 2^31 at window {start}")
+    wide_elements = got.numel()
+    del got, scene, coords
+    torch.cuda.empty_cache()
+    cases += 1
+    emit({"phase": "kernel_vs_plain", "cases": cases, "max_abs_err": 0.0, "exact": True,
+          "tail_residues": sorted(residues), "wide_case_elements": wide_elements})
+
+
+def _wild_coords(gen, batch: int, hp: int, wp: int, device) -> torch.Tensor:
+    """int32 (x, y) from far below 0 to far past the scene's edge."""
+    xs = torch.randint(-2 * wp, 2 * wp, (batch,), generator=gen, device=device)
+    ys = torch.randint(-2 * hp, 2 * hp, (batch,), generator=gen, device=device)
+    return torch.stack([xs, ys], dim=1).to(torch.int32).contiguous()
 
 
 def _random_module(params, data_shape, patches: torch.Tensor, model: str = "HYPELCNNModel"):
@@ -3183,12 +3231,13 @@ def phase_kernels(device, scene, launches: int, train, families: dict, loaders: 
                             " (a (1, 2) mesh's rank: the whole test drain)"))
     rows.append(_gather_row(scene_dev, _bands(device), tp["bands"],
                             " (a (1, 2) mesh's rank: a whole sweep band)"))
-    # a single window: the launch floor; its launches are those of every
-    # main-path run at B = 1, and there should be none
+    # a single window: the smallest launch (one block; a thread's chunk is a
+    # dependent coordinate load, then its scene loads); its launches are
+    # those of every main-path run at B = 1, and there should be none
     single = sum(run.get(1, 0) for run in MAIN_PATH_RUNS)
     check(single == 0, f"the main path launched the gather {single} times at B = 1")
     rows.append(_gather_row(scene_dev, [c[:1] for c in _training_batches(tables, 0, 21)], single,
-                            " (one window: the launch floor; not a main-path shape)"))
+                            " (one window: the smallest launch; not a main-path shape)"))
     # the shapes the other families add: the k = 5 band of CONCNN's and
     # DUALCNN's sweeps, and each family's training step
     band = WIDTH * BATCH_ROWS
@@ -3221,6 +3270,14 @@ def phase_kernels(device, scene, launches: int, train, families: dict, loaders: 
                             classic["by_batch"][CLASSIC_BATCH],
                             " (classic ML: a full-scene batch; the scene's last, shorter batch"
                             " launches once more)", k=1))
+    # the empty-launch floor: a kernel that does nothing, timed as the rows
+    # are; an instrument beside the rows, which the port never calls
+    floor = _event_times(lambda _: torch.cuda._sleep(0), [None] * 21)
+    floor_ms = statistics.median(floor)
+    emit({"phase": "launch_floor", "kernel": "torch.cuda._sleep(0)", "ms": floor_ms,
+          "min_ms": min(floor), "max_ms": max(floor)})
+    for row in rows:
+        row["floor_ms"] = floor_ms
     emit({"kernels": rows})
 
 

@@ -3,8 +3,10 @@
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled on its own
 into ``_build/<name>-<hash>.so`` inside this package, where ``hash`` covers the
 source and the compiler flags: a changed source builds anew, an unchanged one
-is loaded from the earlier build. Nothing is built when a module is imported;
-a wrapper builds its library at its first launch.
+is loaded from the earlier build. ptxas's report of each kernel's registers,
+shared memory and spills (``-Xptxas -v``) is kept beside the library as
+``<name>-<hash>.ptxas.txt``. Nothing is built when a module is imported; a
+wrapper builds its library at its first launch.
 """
 
 from __future__ import annotations
@@ -22,7 +24,7 @@ PACKAGE_DIR = Path(__file__).resolve().parent.parent
 SOURCE_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
 
@@ -55,11 +57,20 @@ def build(name: str) -> Path:
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for {name}.cu (exit {proc.returncode}):\n"
                                f"{proc.stdout}{proc.stderr}")
+        lines = (proc.stdout + proc.stderr).splitlines()
+        target.with_suffix(".ptxas.txt").write_text("".join(
+            line.strip() + "\n" for line in lines if line.startswith("ptxas") or "spill" in line))
         os.replace(tmp, target)
     finally:
         if os.path.exists(tmp):
             os.unlink(tmp)
     return target
+
+
+def ptxas_report(name: str) -> list:
+    """The ptxas lines of the current build of ``csrc/<name>.cu``
+    (its kernels' registers, shared memory and spills); builds it if needed."""
+    return build(name).with_suffix(".ptxas.txt").read_text().splitlines()
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -53,6 +53,64 @@ def test_window_gather_matches_plain(cuda, k, channels):
         assert torch.equal(got, gather_patches_torch(scene, coords, k))
 
 
+def _wild_coords(rng, batch, hp, wp, cuda):
+    """Coordinates from far below 0 to far past the scene's edge."""
+    return torch.from_numpy(np.stack([rng.integers(-2 * wp, 2 * wp, batch),
+                                      rng.integers(-2 * hp, 2 * hp, batch)],
+                                     axis=1).astype(np.int32)).to(cuda)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 3, 5, 9])
+@pytest.mark.parametrize("channels", [1, 2, 3, 5])
+def test_window_gather_matches_plain_at_every_alignment(cuda, k, channels):
+    """Fewer channels than a 16-byte chunk holds (a chunk spans up to four
+    pixels) and, over the batches, every residue of B*k*k*C mod 4 that C
+    allows (the scalar tail), out-of-range coordinates included, bit for bit."""
+    rng = np.random.default_rng(100 * k + channels)
+    scene = torch.from_numpy(rng.normal(size=(9, 11, channels)).astype(np.float32)).to(cuda)
+    residues = set()
+    for batch in (1, 2, 3, 4, 5, 129, 1000):
+        coords = _wild_coords(rng, batch, 9, 11, cuda)
+        got = window_gather_cuda(scene, coords, k)
+        torch.cuda.synchronize()
+        assert torch.equal(got, gather_patches_torch(scene, coords, k))
+        residues.add(batch * k * k * channels % 4)
+    assert residues == {b * channels % 4 for b in range(4)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("channels", [1, 145])
+def test_window_gather_of_no_windows(cuda, channels):
+    """B = 0: an empty [0, k, k, C] tensor, and no launch."""
+    scene = torch.ones((5, 6, channels), device=cuda)
+    coords = torch.zeros((0, 2), dtype=torch.int32, device=cuda)
+    before = window_gather_cuda.launches
+    got = window_gather_cuda(scene, coords, 3)
+    assert got.shape == (0, 3, 3, channels) and got.is_cuda
+    assert torch.equal(got, gather_patches_torch(scene, coords, 3))
+    assert window_gather_cuda.launches == before
+
+
+@pytest.mark.cuda
+def test_window_gather_past_2_31_output_elements(cuda):
+    """k = 9, C = 360, B = 73,700: 2,149,092,000 output floats (8.6 GB), so
+    the 64-bit index path; bit for bit, out-of-range coordinates included,
+    compared a slice of windows at a time."""
+    rng = np.random.default_rng(9)
+    batch, k, channels = 73_700, 9, 360
+    scene = torch.from_numpy(rng.normal(size=(40, 60, channels)).astype(np.float32)).to(cuda)
+    coords = _wild_coords(rng, batch, 40, 60, cuda)
+    got = window_gather_cuda(scene, coords, k)
+    torch.cuda.synchronize()
+    assert got.numel() > 2 ** 31
+    for start in range(0, batch, 8192):
+        part = coords[start:start + 8192]
+        assert torch.equal(got[start:start + 8192], gather_patches_torch(scene, part, k))
+    del got
+    torch.cuda.empty_cache()
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("batch", [48, 8192])
 def test_window_gather_matches_plain_at_training_shapes(cuda, batch):
