@@ -27,7 +27,7 @@ without them. Phases, one JSON line each:
    augmentation, 300 steps with checkpoints every 200 into a fresh log dir.
    The gather's launch count must equal the steps plus the eval batches;
    losses finite and falling, test OA above 0.5. Then the steady-state step
-   time (median of 3 runs of 50 steps after 20 warm-up steps), peak device
+   time (median of 3 runs of 25 steps after 20 warm-up steps), peak device
    memory and the step's float32 bound.
 6. ``train_vs_cpu``: 3 steps from the same weights on the same batches,
    dropout and augmentation off, on the card and on the CPU.
@@ -58,7 +58,7 @@ published JSON, on the same scene (``family_concnn``: k = 5, batch 10;
   pixels whose two top logits tie to 1e-4, at most 1e-4 of the scene, since
   cuDNN computes other batch sizes with other algorithms; not checked for
   CAP, whose batch statistics and routing depend on the batch);
-- the step time (median of 3 runs of 25 steps after 10 warm-up steps), the
+- the step time (median of 3 runs of 15 steps after 10 warm-up steps), the
   sweep time (once, after the infer CLI's sweep of the same shapes; its map
   equals the plain gather's), peak device memory of each, device time by
   kernel and the idle share over 10 traced steps and one traced sweep, and
@@ -104,7 +104,7 @@ Then the five GAN phases, on the GRSS2013 layout ``loader_grss2013`` wrote
   loss at each cadence, 2 points in each ``best_ratio_*.json``,
   ``ckpt_params_125``, ``ckpt_params_250``, ``gan_params`` and 2 full
   states; the saved state restores bit for bit and a rerun to 300 resumes
-  at 250. Then the step through the API (median of 3 runs of 50 steps),
+  at 250. Then the step through the API (median of 3 runs of 25 steps),
   its launches and idle share over 10 traced steps, the CLI's seconds and
   peak memory;
 - ``gan_families``: each of the seven families for 10 steps with finite
@@ -136,7 +136,7 @@ Then three phases on the same layout:
   ``classification_opt.db`` holds trials 0 to 2, each trial's loss is
   finite and below the first step's, the gather's launches are exact by
   batch size; then the GAN CLI with ``configs/gan/cycle_gan_flags_opt.json``,
-  2 trials of 100 steps: ``gan_shadow_opt.db`` holds 2 trials, finite;
+  2 trials of 50 steps: ``gan_shadow_opt.db`` holds 2 trials, finite;
 - ``records``: ``record_writer`` writes the splits at k = 3 as the ``.npz``
   cache and as the ``.tfrecord`` set, ``RecordImporter`` reads both back
   bit for bit ``InMemoryImporter``'s patches (the records' labels too, their
@@ -149,6 +149,15 @@ Then three phases on the same layout:
   cycle_gan`` for 100 steps: 0.25 to 0.35 of the windows shadowed, a falling
   loss, the gather's launches; the reader's seconds, the step beside
   ``gan_augmented``'s.
+- ``jax_log_dir``: the committed orbax checkpoints of the JAX package
+  (``tests/torch_fixtures/jax_hypelcnn_480``, HYPELCNN at the published
+  width after 200 JAX steps, and ``jax_cycle_gan_144``): their decode
+  seconds and bytes; the infer CLI ``--domain all`` on a log dir holding
+  the JAX step (22 launches, JAX's map but at its top-two ties); the train
+  CLI resuming it for 50 steps (the gather's exact launches) and its first
+  resumed step on the card and the CPU within 1e-4; the JAX cycle_gan at
+  GRSS2013's declared path: the creator built, JAX's translation of 256
+  pixels matched to 1e-5, and 30 augmented train CLI steps through the gather.
 
 Six phases of the multi-device paths and bfloat16, ``dist_world1`` right
 after ``kernel_vs_plain`` (it needs nothing the other phases make), the
@@ -268,6 +277,7 @@ import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
+from types import SimpleNamespace
 from typing import NamedTuple
 
 import numpy as np
@@ -282,6 +292,8 @@ from hypelcnn_tpu_torch.apps import (
     train_for_classification,
 )
 from hypelcnn_tpu_torch.classic.forest import RandomForestClassifier
+from hypelcnn_tpu_torch.compat.flax_to_torch import orbax_payload
+from hypelcnn_tpu_torch.compat.orbax import is_orbax_checkpoint, read_orbax, tree_bytes
 from hypelcnn_tpu_torch.core.config import load_algorithm_params
 from hypelcnn_tpu_torch.core.platform import resolve_device
 from hypelcnn_tpu_torch.core.registry import get_importer_from_name, get_model_from_name
@@ -313,6 +325,7 @@ from hypelcnn_tpu_torch.parallel.distributed import world_size as dist_world_siz
 from hypelcnn_tpu_torch.parallel.mesh import create_mesh, pad_to_multiple, tp_sharded_keys
 from hypelcnn_tpu_torch.train.checkpoint import (
     checkpoint_steps,
+    holds_orbax_step,
     restore_checkpoint,
     save_checkpoint,
 )
@@ -342,6 +355,7 @@ SEED = 1234
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 FP32_FLOP_PER_S = 67e12  # H100 SXM float32 outside the tensor cores, same sheet
 TRAIN_BATCH, TRAIN_STEPS, RESUME_STEPS, CHECKPOINT_EVERY = 48, 300, 400, 200
+TRAIN_TIMED_STEPS, AUGMENTED_TIMED_STEPS = 25, 15  # steady-state runs: 3 of each, timed
 TRAIN_RATIO, TEST_RATIO = 0.10, 0.05
 TEST_CADENCE, EVAL_BATCH, SAMPLE_BATCH = 100, 8192, 4096
 SPECTRAL = 0.05
@@ -371,7 +385,7 @@ FAMILIES = [
     Family("family_cap", "CAPModel", CONFIGS / "alg_param_capn.json", 1, 16, 300, {}),
 ]
 FAMILY_OA = 0.2  # chance is 1/15
-FAMILY_TIMED_STEPS, FAMILY_TRACED_STEPS = 25, 10  # a family's step: 3 timed runs, then traced
+FAMILY_TIMED_STEPS, FAMILY_TRACED_STEPS = 15, 10  # a family's step: 3 timed runs, then traced
 # the loader phases: the train CLI at HYPELCNN's full width on each layout
 LOADER_BATCH, LOADER_STEPS, AVON_STEPS, MIXED_STEPS = 48, 100, 100, 50
 LOADER_TRAIN_RATIO, LOADER_TEST_RATIO = 0.1, 0.05
@@ -382,16 +396,22 @@ LOADER_OA = {"GRSS2013DataLoader": 0.5, "GRSS2018DataLoader": 0.5,
 FUSED_PAIRS, FUSED_RUN_STEPS, FUSED_TRACED = 3, 25, 10  # DUALCNN step pairs, unfused against fused
 # the GAN phases, on the GRSS2013 layout (144 CASI bands)
 GAN_BANDS, GAN_BATCH, GAN_STEPS, GAN_VALIDATION, GAN_RESUME_STEPS = 144, 32, 250, 125, 300
-GAN_TIMED_STEPS, GAN_FAMILY_STEPS, TRANSLATE_CHECKS = 50, 10, 4096
+GAN_TIMED_STEPS, GAN_FAMILY_STEPS, TRANSLATE_CHECKS = 25, 10, 4096
 GAN_FAMILIES = ["cycle_gan", "gan_x2y", "gan_y2x", "cut_x2y", "cut_y2x", "dcl_gan",
                 "dcl_cycle_gan"]
 GAN_AUGMENTED_STEPS, SIMPLE_AUGMENTED_STEPS, SHADOW_THRESHOLD = 200, 50, 0.3
 # the search, records and TF checkpoint phases, on the same layout
-SEARCH_STEPS, GAN_SEARCH_STEPS, RECORD_STEPS, TF_AUGMENTED_STEPS = 50, 100, 50, 100
+SEARCH_STEPS, GAN_SEARCH_STEPS, RECORD_STEPS, TF_AUGMENTED_STEPS = 50, 50, 50, 100
 SEARCH_LEARNING_RATE = {"min": 1e-4, "max": 1e-3, "log": True}
 GAN_SPACE = ROOT / "configs" / "gan" / "cycle_gan_flags_opt.json"
 TF_FIXTURE = ROOT / "tests" / "torch_fixtures" / "tf_cycle_gan_144"
 TF_TRANSLATE_CHECKS = 1024
+# the JAX package's log dir: its committed orbax checkpoints (HYPELCNN at the
+# published width after 200 JAX steps; a 144-band cycle_gan with JAX's
+# translation of 256 pixels)
+JAX_FIXTURE = ROOT / "tests" / "torch_fixtures" / "jax_hypelcnn_480"
+JAX_GAN_FIXTURE = ROOT / "tests" / "torch_fixtures" / "jax_cycle_gan_144"
+JAX_RESUMED_STEPS, JAX_AUGMENTED_STEPS = 50, 30
 PROFILED_STEPS = 10  # profile_train's traced steps
 # the multi-device phases: one rank plainly and on NCCL; two ranks on the one card
 DIST_WORLD1_STEPS, DIST_STEPS, DIST_CHECKPOINT_EVERY, DIST_RESUME_STEPS = 50, 50, 10, 20
@@ -766,10 +786,12 @@ def phase_train(device, work: Path, data, macs: int) -> dict:
     # steady state, through the trainer's own step, on the CLI's configuration
     trainer = _trainer(data, params, device, _augmentation())
     state = trainer.init_state()
-    tables = trainer.training_tables(20 + 3 * 50 + 2 * PROFILED_STEPS, TRAIN_BATCH)
+    tables = trainer.training_tables(20 + 3 * TRAIN_TIMED_STEPS + 2 * PROFILED_STEPS,
+                                     TRAIN_BATCH)
     torch.cuda.reset_peak_memory_stats()
     _timed_steps(trainer, state, tables, 0, 20)
-    runs = [_timed_steps(trainer, state, tables, 20 + 50 * i, 50) / 50 for i in range(3)]
+    runs = [_timed_steps(trainer, state, tables, 20 + TRAIN_TIMED_STEPS * i, TRAIN_TIMED_STEPS)
+            / TRAIN_TIMED_STEPS for i in range(3)]
     step_seconds = statistics.median(runs)
     step_flop = 3 * 2 * macs * TRAIN_BATCH  # forward + backward ~ 3 forwards
     emit({"phase": "train", "steps": TRAIN_STEPS, "batch": TRAIN_BATCH, "targets": counts, **gather,
@@ -782,7 +804,8 @@ def phase_train(device, work: Path, data, macs: int) -> dict:
           "steady_peak_device_bytes": torch.cuda.max_memory_allocated(),
           "flop_per_step": step_flop, "step_bound_seconds": step_flop / FP32_FLOP_PER_S})
     return {"log_root": log_root, "log_dir": log_dir, "launches": gather["gather_launches"],
-            "trainer": trainer, "state": state, "tables": tables, "next_step": 170,
+            "trainer": trainer, "state": state, "tables": tables,
+            "next_step": 20 + 3 * TRAIN_TIMED_STEPS,
             "params": params}
 
 
@@ -1719,12 +1742,13 @@ def phase_gan_infer_image(device, work: Path, root: Path, log_dir: Path) -> None
     pixels = np.ascontiguousarray(scene.casi[:, :, :GAN_BANDS], dtype=np.float32)
     timed = {}
     for impl, owner in (("conv", trainer), ("toeplitz", toeplitz)):
-        runs = _timed_sweeps(lambda o=owner, n=nets[impl]: o.translate_scene(n, pixels, True))
+        runs = _timed_sweeps(lambda o=owner, n=nets[impl]: o.translate_scene(n, pixels, True),
+                             runs=2)
         timed[impl] = {"seconds": statistics.median(runs), "runs": runs}
         # the device's own time: the blocks already on the card
         blocks = torch.from_numpy(pixels.reshape(-1, 1, 1, GAN_BANDS)).to(device).split(65536)
         device_runs = _timed_sweeps(lambda o=owner, n=nets[impl]: [o.translate(n, b, True)
-                                                                    for b in blocks])
+                                                                    for b in blocks], runs=2)
         timed[impl].update(device_seconds=statistics.median(device_runs),
                            device_runs=device_runs)
     emit({"phase": "gan_infer_image", "scene": [HEIGHT, WIDTH, GAN_BANDS],
@@ -1797,12 +1821,14 @@ def _shadow_checks(data, info, device, run: dict) -> dict:
 
 
 def _augmented_step(data, info, device) -> dict:
-    """The step with ``info``'s augmentation (median of 3 runs of 30 after 10)."""
+    """The step with ``info``'s augmentation (median of 3 runs of
+    ``AUGMENTED_TIMED_STEPS`` after 10)."""
     stepper = _trainer(data, _loader_params(), device, info)
     state = stepper.init_state()
-    tables = stepper.training_tables(10 + 3 * 30, LOADER_BATCH)
+    tables = stepper.training_tables(10 + 3 * AUGMENTED_TIMED_STEPS, LOADER_BATCH)
     _timed_steps(stepper, state, tables, 0, 10)
-    step_runs = [_timed_steps(stepper, state, tables, 10 + 30 * i, 30) / 30 for i in range(3)]
+    step_runs = [_timed_steps(stepper, state, tables, 10 + AUGMENTED_TIMED_STEPS * i,
+                              AUGMENTED_TIMED_STEPS) / AUGMENTED_TIMED_STEPS for i in range(3)]
     return {"step_seconds": statistics.median(step_runs), "step_runs": step_runs}
 
 
@@ -2067,6 +2093,117 @@ def phase_tf_checkpoint(device, work: Path, root: Path, augmented: dict) -> dict
           "gan_augmented_step": augmented["step"], "run": _augmented_record(run)})
     return {"steps": run["gather_launches"]["steps"],
             "eval_batches": run["gather_launches"]["eval_batches"]}
+
+
+def phase_jax_log_dir(device, work: Path, root: Path, data) -> dict:
+    """The JAX package's orbax checkpoints (committed under
+    ``tests/torch_fixtures``, as the JAX package wrote them) read by the
+    port: the decode's seconds and bytes; the infer CLI on a log dir holding
+    the JAX step, whose map must be JAX's but at the pixels whose two top
+    logits JAX found within 1e-4; the train CLI resuming the JAX step for
+    ``JAX_RESUMED_STEPS`` (its exact launches), the first resumed step on the
+    card within 1e-4 of the CPU's; JAX's cycle_gan ``gan_params`` at
+    GRSS2013's declared path: the creator, JAX's translation to 1e-5, and
+    ``JAX_AUGMENTED_STEPS`` shadow-augmented train CLI steps."""
+    (step_dir,) = (JAX_FIXTURE / "checkpoints").iterdir()
+    saved = int(step_dir.name)
+    decode, trees = {}, {}
+    for name, path in (("train_state", step_dir), ("gan_params", JAX_GAN_FIXTURE / "gan_params")):
+        start = time.perf_counter()
+        trees[name] = read_orbax(str(path))
+        decode[name] = {"seconds": time.perf_counter() - start,
+                        "file_bytes": sum(p.stat().st_size for p in path.rglob("*") if p.is_file()),
+                        "array_bytes": tree_bytes(trees[name])}
+
+    # a log dir holding the JAX step, where the train CLI's flags name it
+    log_root = work / "jax_log"
+    flags = SimpleNamespace(loader_name="SyntheticDataLoader", model_name=HYPELCNN.model,
+                            train_ratio=TRAIN_RATIO, algorithm_param_path=str(PARAMS_PATH),
+                            neighborhood=NEIGHBORHOOD, augment_data_with_shadow=None,
+                            augmentation_random_threshold=0.5,
+                            augment_data_with_spectral=SPECTRAL)
+    log_dir = log_root / train_for_classification.get_log_suffix(flags)
+    shutil.copytree(JAX_FIXTURE / "checkpoints", log_dir / "checkpoints")
+    out_dir = work / "jax_all"
+    reset_launches()
+    start = time.perf_counter()
+    infer_for_classification.main([
+        "--loader_name=SyntheticDataLoader", f"--path={SPEC}", f"--neighborhood={NEIGHBORHOOD}",
+        f"--algorithm_param_path={PARAMS_PATH}", f"--base_log_path={log_dir}",
+        f"--output_path={out_dir}", "--domain=all", "--device=cuda"])
+    infer_seconds = time.perf_counter() - start
+    bands = window_gather_cuda.launches
+    _note_main_path()
+    check(bands == math.ceil(HEIGHT / BATCH_ROWS), f"infer CLI on the JAX step: {bands} launches")
+    got = imread(str(out_dir / "result_raw.tif"))
+    jax_maps = np.load(JAX_FIXTURE / "class_map.npz")
+    ties = np.unpackbits(jax_maps["ties"])[:HEIGHT * WIDTH].reshape(HEIGHT, WIDTH).astype(bool)
+    differ = got != jax_maps["class_map"]
+    check(not (differ & ~ties).any(), f"{int((differ & ~ties).sum())} pixels differ from "
+                                      f"JAX's map away from its {int(ties.sum())} ties")
+
+    n_test, n_validation = (data.targets(split).shape[0] for split in ("test", "validation"))
+    expected = _expected_launches(saved, saved + JAX_RESUMED_STEPS, n_test, n_validation)
+    reset_launches()
+    start = time.perf_counter()
+    result, out = _run_train_cli(_train_args(log_root, saved + JAX_RESUMED_STEPS))
+    train_seconds = time.perf_counter() - start
+    launches = window_gather_cuda.launches
+    by_batch = _note_main_path()
+    resumed = [line for line in out.splitlines() if line.startswith("Resuming")]
+    check(resumed == [f"Resuming from checkpoint at step {saved}"],
+          f"the train CLI did not resume the JAX step {saved}: {resumed}")
+    check(launches == expected["total"] and by_batch.get(TRAIN_BATCH, 0) == expected["steps"],
+          f"window_gather launched {launches} times ({by_batch}), expected {expected}")
+    check(result.steps_run == JAX_RESUMED_STEPS and math.isfinite(result.loss),
+          f"the resumed run ran {result.steps_run} steps, loss {result.loss}")
+    steps = checkpoint_steps(str(log_dir))
+    check(steps == [saved, saved + JAX_RESUMED_STEPS] and holds_orbax_step(str(log_dir), saved),
+          f"checkpoints {steps}")
+    params = {**load_algorithm_params(HYPELCNNModel().default_params(), str(PARAMS_PATH)),
+              "batch_size": TRAIN_BATCH, **HYPELCNN.dropout_off}
+    restored = orbax_payload(trees["train_state"])  # what restore_checkpoint gives for it
+    first = {}
+    for name, where in (("card", device), ("cpu", torch.device("cpu"))):
+        trainer = _trainer(data, params, where)
+        state = trainer.init_state()
+        state.restore(restored)
+        tables = trainer.training_tables(saved + 1, TRAIN_BATCH)
+        first[name] = float(trainer.train_step(state, tables, saved))
+    rel = abs(first["card"] - first["cpu"]) / abs(first["cpu"])
+    check(rel < 1e-4, f"the first resumed step's loss differs by {rel} between card and CPU")
+
+    # the JAX cycle_gan where GRSS2013 declares its generator
+    loader = GRSS2013DataLoader(str(root))
+    target = Path(loader.get_model_base_dir()) / loader.get_shadow_checkpoints()["cycle_gan"]
+    shutil.rmtree(target.parent, ignore_errors=True)  # gan_augmented's and the TF fixture
+    shutil.copytree(JAX_GAN_FIXTURE / "gan_params", target)
+    check(is_orbax_checkpoint(str(target)), f"{target} is not an orbax checkpoint")
+    grss, read = _read("GRSS2013DataLoader", root, LOADER_TRAIN_RATIO, LOADER_TEST_RATIO,
+                       device, [])
+    creators = build_shadow_creators(grss.loader, grss.scene, NEIGHBORHOOD, device)
+    check(sorted(creators) == ["cycle_gan", "simple"], f"shadow creators: {sorted(creators)}")
+    translation = np.load(JAX_GAN_FIXTURE / "translation.npz")
+    pixels = torch.from_numpy(translation["pixels"])
+    windows = torch.cat([pixels, torch.ones(pixels.shape[:-1] + (1,))], dim=-1).to(device)
+    errors = {}
+    for name, key in (("shadow_fn", "shadow"), ("deshadow_fn", "deshadow")):
+        got_translation = getattr(creators["cycle_gan"], name)(windows).cpu()[..., :GAN_BANDS]
+        errors[name] = float((got_translation - torch.from_numpy(translation[key])).abs().max())
+        check(errors[name] <= 1e-5, f"{name}: {errors[name]} from JAX's translation")
+    run = _augmented_cli(work, root, "cycle_gan", JAX_AUGMENTED_STEPS, read["targets"])
+    emit({"phase": "jax_log_dir", "fixture": str(JAX_FIXTURE.relative_to(ROOT)),
+          "gan_fixture": str(JAX_GAN_FIXTURE.relative_to(ROOT)), "saved_step": saved,
+          "decode": decode, "infer_cli_seconds": infer_seconds, "infer_launches": bands,
+          "pixels_differ": int(differ.sum()), "jax_ties": int(ties.sum()),
+          "train_cli_seconds": train_seconds, "resumed_line": resumed[0],
+          "gather_launches": launches, "expected_launches": expected,
+          "resumed_loss": result.loss, "test_oa": result.test_accuracy,
+          "first_step_loss": first, "first_step_rel_diff": rel,
+          "installed_at": str(target.relative_to(root)), "translate_abs_err_vs_jax": errors,
+          "augmented": _augmented_record(run)})
+    return {"bands": bands, "steps": expected["steps"] + run["gather_launches"]["steps"],
+            "eval_batches": expected["eval_batches"] + run["gather_launches"]["eval_batches"]}
 
 
 # ---- the multi-device and bfloat16 phases ----
@@ -3181,13 +3318,14 @@ def _bands(device, count: int = 20) -> list:
 def phase_kernels(device, scene, launches: int, train, families: dict, loaders: dict,
                   augmented_launches: int, later: dict, dist: dict, classic: dict,
                   tp: dict) -> None:
-    """Kernel rows; ``launches`` are the sweep's, ``train["launches"]`` the
+    """Kernel rows; ``launches`` are the sweeps' (``infer_all``'s and the
+    infer CLI's on the JAX step), ``train["launches"]`` the
     train CLI run's, split by batch size; ``families`` the family phases'
     results, with their launches by batch size; ``loaders`` the GULFPORT and
     AVON phases', whose train CLI runs launch at C = 65 and C = 360;
     ``augmented_launches`` the GAN-augmented train CLI runs' steps';
-    ``later`` the search, TF checkpoint, world-1, resume and bfloat16 train
-    CLI runs' launches (``steps`` at the step's batch, ``eval_batches`` at
+    ``later`` the search, TF checkpoint, JAX log dir, world-1, resume and
+    bfloat16 train CLI runs' launches (``steps`` at the step's batch, ``eval_batches`` at
     the drains'); ``dist`` the two-rank runs' launches at a rank's shares
     (the search under two ranks included); ``classic`` the classic-ML CLI's
     scene, coordinates and launches (k = 1); ``tp`` the tensor-parallel
@@ -3199,7 +3337,7 @@ def phase_kernels(device, scene, launches: int, train, families: dict, loaders: 
     rows.append(_gather_row(scene_dev, _training_batches(tables, 0, 21),
                             train_launches["steps"] + augmented_launches + later["steps"],
                             " (training step; with the GAN-augmented, search, TF-checkpoint,"
-                            " world-1, one-rank resume and bfloat16 steps)"))
+                            " JAX-resumed, world-1, one-rank resume and bfloat16 steps)"))
     train_coords = tables.coords
     gen = torch.Generator(device=device).manual_seed(SEED)
     eval_batches = [train_coords.index_select(0, torch.randperm(
@@ -3400,6 +3538,7 @@ def main() -> int:
         timed("records", phase_records, device, Path(work), root, grss2013)
         imported = timed("tf_checkpoint", phase_tf_checkpoint, device, Path(work), root,
                          augmented)
+        jax_logs = timed("jax_log_dir", phase_jax_log_dir, device, Path(work), root, data)
         dist = timed("dist_two_ranks_one_card", phase_dist_two_ranks, device, Path(work), data,
                      gan["pairs"])
         del gan["pairs"]
@@ -3416,10 +3555,10 @@ def main() -> int:
                "gulfport": Path(work) / "gulfport"}, train["log_dir"])
         classic = timed("classic_ml", phase_classic_ml, device, Path(work))
     timed("fused_levels", phase_fused_levels, device, scene, families["family_dualcnn"])
-    later = {key: sum(run[key] for run in (searched, imported, world1, dist, bf16))
+    later = {key: sum(run[key] for run in (searched, imported, jax_logs, world1, dist, bf16))
              for key in ("steps", "eval_batches")}
-    timed("kernels", phase_kernels, device, scene, launches, train, families, loaders,
-          augmented["launches"], later, dist, classic, tp)
+    timed("kernels", phase_kernels, device, scene, launches + jax_logs["bands"], train, families,
+          loaders, augmented["launches"], later, dist, classic, tp)
     timed("profile", phase_profile, device, scene, module)
     timed("profile_train", phase_profile_train, train)
     torch.cuda.synchronize()

@@ -18,7 +18,7 @@ directions (``best_ratio_*.json``), and writes a params snapshot
 ``step // validation_steps`` kept); at the end ``gan_params``, which
 ``gan_infer_for_shadow``, ``gan_infer_image_for_shadow`` and the classifier's
 ``--augment_data_with_shadow`` read. A log dir that holds a full state is
-resumed from.
+resumed from, the JAX package's (an orbax checkpoint) as well.
 
 Under ``torchrun`` with more than one rank the trainer runs data-parallel
 (``use_mesh``): every rank draws the same global batch (and its

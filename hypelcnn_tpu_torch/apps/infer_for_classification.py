@@ -1,8 +1,9 @@
 """Classification inference CLI (``hypelcnn_tpu/apps/infer_for_classification.py``).
 
 The same flags, plus ``--device`` (``cuda`` unless asked for ``cpu``). The
-model comes from the registry and its weights from the latest port
-checkpoint under ``--base_log_path`` (the train CLI's suffixed log dir). It
+model comes from the registry and its weights from the latest checkpoint
+under ``--base_log_path`` (the train CLI's suffixed log dir, the port's or
+the JAX package's, whose orbax checkpoints it reads as well). It
 writes ``result_raw.tif`` and ``result_colorized.tif`` to ``--output_path``:
 
 - ``--domain all`` classifies every pixel of the scene;

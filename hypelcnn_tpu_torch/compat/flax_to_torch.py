@@ -21,12 +21,29 @@ Every source leaf is used exactly once; a leaf of any other name raises.
 ``flax_variables`` goes the other way, from a port ``state_dict`` to the
 flax-shaped ``params`` and ``batch_stats`` trees, so that code written
 against flax names (the TF checkpoint import) fills a port module.
+
+The JAX package's saved states (read from orbax with
+:func:`hypelcnn_tpu_torch.compat.orbax.read_orbax`) come across whole:
+
+- :func:`orbax_payload` makes the checkpoint dict every port reader takes
+  (``step``, ``state_dict``) and keeps the tree under :data:`ORBAX_TREE`;
+- :func:`optimizer_state_dict` turns a classifier ``TrainState``'s optax
+  state into the ``torch.optim`` state: ``adam``'s ``ScaleByAdamState(count,
+  mu, nu)`` into Adam's per-parameter ``step``, ``exp_avg`` and
+  ``exp_avg_sq``, ``sgd``'s momentum ``trace`` into SGD's ``momentum_buffer``,
+  each moment through the rules above (so with its weight's transpose) and
+  in the module's parameter order; the schedule's count is the step;
+- :func:`gan_state_payload` turns a GAN ``GANState`` (``params``,
+  ``opt_states`` of ``gan_adam``, ``pool``) into the port's ``GANState``
+  checkpoint: an optimizer named ``a.b`` is ``opt_states["a"]["b"]``, whose
+  moments are the tree of its one network, or of several keyed by their
+  names (cycle_gan's joint ``generators``); the pools keep their buffers.
 """
 
 from __future__ import annotations
 
 import re
-from typing import Dict, Mapping, Optional, Tuple
+from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -141,3 +158,82 @@ def flax_variables(state_dict: Mapping[str, torch.Tensor]) -> Tuple[dict, dict]:
             node = node.setdefault(part, {})
         node[leaf] = array.transpose(transpose) if transpose is not None else array.copy()
     return trees["params"], trees["batch_stats"]
+
+
+# ------------------------------------------------ the JAX package's states ----
+
+ORBAX_TREE = "orbax_tree"  # the checkpoint dict's key of the tree it came from
+
+
+def orbax_payload(tree: Mapping) -> Dict[str, Any]:
+    """The port's checkpoint dict of a JAX ``TrainState`` or ``GANState``
+    tree: its ``step``, the ``state_dict`` of its ``params`` (and
+    ``batch_stats``), and the tree itself, from which the restores of
+    :class:`~hypelcnn_tpu_torch.train.state.TrainState` and the GAN state
+    convert the optimizer state."""
+    return {"step": int(np.asarray(tree["step"])),
+            "state_dict": variables_to_state_dict(tree["params"], tree.get("batch_stats") or None),
+            ORBAX_TREE: tree}
+
+
+def _moments(tree: Mapping, names: Sequence[str], what: str) -> Dict[str, torch.Tensor]:
+    """A moment tree as a ``state_dict`` holding exactly ``names``."""
+    moments = variables_to_state_dict(tree)
+    if set(moments) != set(names):
+        raise KeyError(f"{what}: the moments of {sorted(set(moments) ^ set(names))} "
+                       "are not those of the parameters")
+    return moments
+
+
+def optimizer_state_dict(tree: Mapping, module: torch.nn.Module,
+                         optimizer: torch.optim.Optimizer) -> Dict[str, Any]:
+    """``optimizer``'s ``state_dict`` holding the optax state of the JAX
+    ``TrainState`` ``tree`` (``opt_state`` = ``(adam or trace, schedule)``)."""
+    names = [name for name, _ in module.named_parameters()]
+    first = tree["opt_state"][0]
+    if isinstance(optimizer, torch.optim.Adam) and "mu" in first:
+        count = torch.tensor(float(np.asarray(first["count"])))
+        mu = _moments(first["mu"], names, "adam mu")
+        nu = _moments(first["nu"], names, "adam nu")
+        state = {i: {"step": count.clone(), "exp_avg": mu[name], "exp_avg_sq": nu[name]}
+                 for i, name in enumerate(names)}
+    elif isinstance(optimizer, torch.optim.SGD) and "trace" in first:
+        trace = _moments(first["trace"], names, "momentum trace")
+        state = {i: {"momentum_buffer": trace[name]} for i, name in enumerate(names)}
+    else:
+        raise ValueError(f"the checkpoint's optimizer state ({sorted(first)}) is not "
+                         f"that of {type(optimizer).__name__}")
+    return {"state": state, "param_groups": optimizer.state_dict()["param_groups"]}
+
+
+def gan_state_payload(tree: Mapping, nets: torch.nn.Module,
+                      optimizers: Mapping[str, List[str]], pools: Sequence[str]
+                      ) -> Dict[str, Any]:
+    """The port's GAN state checkpoint (``GANState.checkpoint``'s form) of the
+    JAX ``GANState`` tree: ``optimizers`` names each optimizer's networks
+    (paths in ``nets``), ``pools`` the pools."""
+    opt_states = {}
+    for name, paths in optimizers.items():
+        node = tree["opt_states"]
+        for part in name.split("."):
+            node = node[part]
+        names = [f"{path}.{leaf}" for path in paths
+                 for leaf, _ in nets.get_submodule(path).named_parameters()]
+        moments = []
+        for key in ("mu", "nu"):
+            tree_of_paths = node[key] if len(paths) > 1 else {paths[0]: node[key]}
+            moments.append(_moments(tree_of_paths, names, f"{name} {key}"))
+        opt_states[name] = {"count": int(np.asarray(node["count"])),
+                            "m": [moments[0][n] for n in names],
+                            "v": [moments[1][n] for n in names]}
+    pool_tree = tree.get("pool")
+    if tuple(pools) == ("pool",):
+        pool_tree = {"pool": pool_tree}
+    saved_pools = {name: {"buffer": torch.from_numpy(np.array(pool_tree[name]["buffer"])),
+                          "inputs_buffer": torch.from_numpy(
+                              np.array(pool_tree[name]["inputs_buffer"])),
+                          "count": int(np.asarray(pool_tree[name]["count"]))}
+                   for name in pools}
+    return {"step": int(np.asarray(tree["step"])),
+            "state_dict": variables_to_state_dict(tree["params"]),
+            "opt_states": opt_states, "pools": saved_pools}

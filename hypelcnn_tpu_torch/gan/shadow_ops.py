@@ -6,13 +6,15 @@
   generator, pixel by pixel, and passes the LiDAR channel through. It is
   restored from what is at the path the loader declares: a params snapshot
   directory (``gan_train_for_shadow``'s ``gan_params`` or
-  ``ckpt_params_N``), or a TF checkpoint (``model.ckpt-N``, as the
-  reference's trained generators are), whose generators are imported with
-  ``utils/tf_checkpoint_import.py``.
+  ``ckpt_params_N``, the port's or the JAX package's orbax one), or a TF
+  checkpoint (``model.ckpt-N``, as the reference's trained generators are),
+  whose generators are imported with ``utils/tf_checkpoint_import.py``.
 
 A creator that fails to restore is reported and left out, as in the JAX
 package, so the train CLI's unknown-method error then names the creators
-that are available.
+that are available; one whose checkpoint is in a format or with an option
+the port does not read (:class:`~hypelcnn_tpu_torch.compat.FormatNotRead`)
+raises instead.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ from typing import Dict
 import numpy as np
 import torch
 
+from hypelcnn_tpu_torch.compat import FormatNotRead
 from hypelcnn_tpu_torch.data.augmentation import ShadowOps
 from hypelcnn_tpu_torch.models.layers import init_parameters
 from hypelcnn_tpu_torch.utils.tf_checkpoint_import import (
@@ -86,6 +89,8 @@ def build_shadow_creators(loader, scene, neighborhood: int, device,
                     continue
                 nets.requires_grad_(False)
                 creators[name] = create_gan_shadow_struct(trainer, nets, band_count)
+            except FormatNotRead:
+                raise  # a declared generator the port cannot read is not left out
             except Exception as exc:  # a corrupt or foreign checkpoint: reported, left out
                 print(f"shadow creator {name}: failed to restore {path}: {exc}")
     return creators

@@ -14,7 +14,8 @@
   the step, so the host tracks it.
 - :class:`GANState`: the step, the networks (an ``nn.ModuleDict`` named as
   the JAX package's params tree, so the weight bridge maps it), every
-  optimizer's state and the pools.
+  optimizer's state and the pools. It restores the JAX package's
+  ``GANState`` too (an orbax checkpoint, converted by the weight bridge).
 - :class:`GANTrainerBase`: ``init_state``, ``train_step`` and the
   translations; :func:`translate_patch` folds ``k x k`` cells into the batch.
 
@@ -46,6 +47,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from hypelcnn_tpu_torch.compat.flax_to_torch import ORBAX_TREE, gan_state_payload
 from hypelcnn_tpu_torch.models.layers import init_parameters
 from hypelcnn_tpu_torch.parallel.mesh import Mesh, bind_mesh
 from hypelcnn_tpu_torch.train.checkpoint import restore_params
@@ -174,6 +176,7 @@ class GANState:
     nets: nn.ModuleDict
     opt_states: Dict[str, AdamState]
     pools: Dict[str, Pool] = field(default_factory=dict)
+    opt_paths: Dict[str, List[str]] = field(default_factory=dict)  # each optimizer's networks
 
     def checkpoint(self) -> Dict[str, Any]:
         """``save_checkpoint`` keyword arguments: the whole state, on the CPU."""
@@ -185,8 +188,12 @@ class GANState:
 
     @torch.no_grad()
     def restore(self, saved: Dict[str, Any]) -> None:
-        """Load a :meth:`checkpoint` dict into this state's tensors; the
-        optimizers and pools must be the ones it was saved from."""
+        """Load a :meth:`checkpoint` dict, or the JAX package's
+        (``restore_checkpoint`` of an orbax step), into this state's tensors;
+        the optimizers and pools must be the ones it was saved from."""
+        if ORBAX_TREE in saved:
+            saved = gan_state_payload(saved[ORBAX_TREE], self.nets, self.opt_paths,
+                                      list(self.pools))
         self.nets.load_state_dict(saved["state_dict"], strict=True)
         if set(saved["opt_states"]) != set(self.opt_states) or \
                 set(saved["pools"]) != set(self.pools):
@@ -258,7 +265,9 @@ class GANTrainerBase:
                       for name, (tx, paths) in self.optimizers.items()}
         pools = {name: Pool.create(POOL_SIZE, (1, 1, self.band_count), device)
                  for name in self.pool_names}
-        return GANState(step=0, nets=nets, opt_states=opt_states, pools=pools)
+        return GANState(step=0, nets=nets, opt_states=opt_states, pools=pools,
+                        opt_paths={name: list(paths)
+                                   for name, (_, paths) in self.optimizers.items()})
 
     def restore_nets(self, path: str, device) -> nn.ModuleDict:
         """The networks of the params snapshot directory ``path`` (written by

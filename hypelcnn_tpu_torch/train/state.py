@@ -7,7 +7,9 @@ rank's slice of their output channels, and so do their optimizer moments. A
 checkpoint holds full tensors all the same: :meth:`TrainState.checkpoint`
 gathers the shards over the model axis (every rank calls it) and
 :meth:`TrainState.restore` cuts this rank's slice of each, so a checkpoint
-moves between any mesh and one rank."""
+moves between any mesh and one rank. A checkpoint the JAX package wrote
+(read from orbax, at full width too) has its optax state converted here,
+first, by the weight bridge."""
 
 from __future__ import annotations
 
@@ -16,6 +18,7 @@ from typing import Any, Callable, Dict, FrozenSet, Optional
 
 import torch
 
+from hypelcnn_tpu_torch.compat.flax_to_torch import ORBAX_TREE, optimizer_state_dict
 from hypelcnn_tpu_torch.parallel.mesh import Mesh
 from hypelcnn_tpu_torch.train.optimizer import Schedule
 
@@ -80,8 +83,13 @@ class TrainState:
                 "optimizer": _to_cpu(optimizer)}
 
     def restore(self, checkpoint: Dict[str, Any]) -> None:
-        """Load a :meth:`checkpoint` dict; tensors go to the module's device."""
-        state_dict, optimizer = checkpoint["state_dict"], checkpoint["optimizer"]
+        """Load a :meth:`checkpoint` dict, or one of the JAX package's
+        (``restore_checkpoint`` of an orbax step); tensors go to the module's device."""
+        state_dict = checkpoint["state_dict"]
+        if ORBAX_TREE in checkpoint:
+            optimizer = optimizer_state_dict(checkpoint[ORBAX_TREE], self.module, self.optimizer)
+        else:
+            optimizer = checkpoint["optimizer"]
         if self.sharded:
             state_dict, optimizer = self._per_shard(state_dict, optimizer,
                                                     lambda t: self.mesh.shard(t).clone())

@@ -82,7 +82,11 @@ from hypelcnn_tpu_torch.parallel.mesh import (
     pad_to_multiple,
     shard_module_,
 )
-from hypelcnn_tpu_torch.train.checkpoint import restore_checkpoint, save_checkpoint
+from hypelcnn_tpu_torch.train.checkpoint import (
+    holds_orbax_step,
+    restore_checkpoint,
+    save_checkpoint,
+)
 from hypelcnn_tpu_torch.train.metrics import MetricsResult, compute_metrics, confusion_update
 from hypelcnn_tpu_torch.train.optimizer import build_optimizer
 from hypelcnn_tpu_torch.train.state import TrainState
@@ -332,6 +336,8 @@ class ClassificationTrainer:
                     print(f"Resuming from checkpoint at step {resume_step}")
 
         def save() -> None:
+            if holds_orbax_step(self.log_dir, state.step):
+                return  # the JAX package's checkpoint of this very state, as it resumed
             if chief or state.sharded:  # the shards are gathered by every rank
                 payload = state.checkpoint()
                 if chief:

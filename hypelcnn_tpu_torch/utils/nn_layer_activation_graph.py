@@ -6,9 +6,10 @@ model in evaluation mode on ``--device`` (``cuda`` unless asked for
 ``cpu``), and each activation tap the model returns
 (``ModelOutput.histograms``: HYPELCNN's, in NHWC) is plotted per level as
 ``activation_<tap>.png`` in ``--output_path`` where matplotlib is installed.
-The weights are the latest checkpoint the port's train CLI wrote under
-``--base_log_path`` when it has a ``checkpoints/`` directory (which must
-then hold one), else a fresh initialization from a seeded generator::
+The weights are the latest checkpoint the port's or the JAX package's
+train CLI wrote under ``--base_log_path`` when it has a ``checkpoints/``
+directory (which must then hold one), else a fresh initialization from a
+seeded generator::
 
     python -m hypelcnn_tpu_torch.utils.nn_layer_activation_graph \\
         --model_name=HYPELCNNModel --neighborhood=1 --class_count=15 --bands=145 \\

@@ -1,11 +1,12 @@
 """The PyTorch port stands alone: nothing in it, nor in ``chip_smoke.py``,
 the port's scripts (``scripts/torch_*.py``) or the rank worker of its
 multi-process tests (``tests/torch_mp_worker.py``), imports jax, flax, optax, orbax,
-scikit-learn, TensorFlow, the JAX package, OpenCV, or the image libraries the
-JAX package reads through (PIL, imageio, tifffile), none of which the card's
-machine has (the port reads TF checkpoints, records and event files with
-numpy, and has its own copies of the OpenCV calls and the scikit-learn
-estimators); matplotlib (which it lacks too) is imported only inside the function
+scikit-learn, TensorFlow, the JAX package, OpenCV, the image libraries the
+JAX package reads through (PIL, imageio, tifffile), or the libraries under
+orbax (zstandard, tensorstore, zarr, numcodecs), none of which the card's
+machine has (the port reads TF checkpoints, records, event files and orbax
+checkpoints with numpy, and has its own copies of the OpenCV calls and the
+scikit-learn estimators); matplotlib (which it lacks too) is imported only inside the function
 that draws a plot; and its CLIs run on CUDA unless asked for the CPU."""
 
 import ast
@@ -19,7 +20,8 @@ import torch
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT = ROOT / "hypelcnn_tpu_torch"
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "sklearn", "hypelcnn_tpu",
-             "PIL", "imageio", "tifffile", "tensorflow", "cv2"}
+             "PIL", "imageio", "tifffile", "tensorflow", "cv2",
+             "zstandard", "tensorstore", "zarr", "numcodecs"}
 
 
 def _port_files():

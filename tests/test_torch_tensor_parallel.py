@@ -38,7 +38,9 @@ Tolerances, as measured:
 - a checkpoint resumed across meshes (TP to TP, TP to one rank, one rank to
   TP) against an uninterrupted one-rank run: the losses ``rtol=1e-5``, the
   states as above; the TP checkpoint's tensors and Adam moments are full
-  width, the moments within 1e-6 of one rank's (measured 6.3e-8);
+  width, the moments within 1e-6 of one rank's (measured 6.3e-8); the JAX
+  package's orbax checkpoint resumed on (1, 2) as one rank resumes it, held
+  the same way;
 - sweep maps equal pixel for pixel; cycle_gan's losses ``rel=1e-4``, as
   ``test_torch_multiprocess_gan.py`` holds two ranks (measured: equal on
   both meshes).
@@ -159,6 +161,24 @@ def jax_tp_step(work):
 
 
 @pytest.fixture(scope="module")
+def jax_log(work):
+    """A JAX run's log dir with its orbax checkpoint at STEPS (HYPELCNN on one
+    device), copied for a (1, 2) resume and a one-rank resume."""
+    np.random.seed(0)
+    data = jax_get_importer("GeneratorImporter").read_data_set(
+        "SyntheticDataLoader", SPEC, train_ratio=0.5, test_ratio=0.1, neighborhood=1)
+    params = {**JaxHYPELCNNModel().default_params(), **HYPELCNN, "learning_rate": LEARNING_RATE}
+    trainer = JaxClassificationTrainer(
+        model=JaxHYPELCNNModel(), class_count=data.class_count, algorithm_params=params,
+        scene=data.scene, sample_set=data.sample_set, sources=data.sources,
+        data_shape=data.data_shape, log_dir=str(work / "jax_log"), save_checkpoint_steps=STEPS)
+    trainer.fit(STEPS, BATCH)
+    for copy in ("jax_to_tp", "jax_to_one"):
+        shutil.copytree(work / "jax_log", work / copy)
+    return work
+
+
+@pytest.fixture(scope="module")
 def sweep_weights(work):
     """HYPELCNN's weights with random batch-norm state (``tests/torch_parity.py``)."""
     _, flax_params, batch_stats = init_jax("HYPELCNNModel", CLASSES, HYPELCNN,
@@ -201,7 +221,7 @@ def _checkpoint_tasks(work, one_rank):
 
 
 @pytest.fixture(scope="module")
-def ranks(work, one_rank, jax_tp_step, sweep_weights, gan_batches):
+def ranks(work, one_rank, jax_tp_step, sweep_weights, gan_batches, jax_log):
     """Every task of each world, in one launch of its ranks; the results by
     mesh name, rank 0 first."""
     out = {}
@@ -214,6 +234,9 @@ def ranks(work, one_rank, jax_tp_step, sweep_weights, gan_batches):
             tasks.append(_train_task("from_jax", *CASES["hypelcnn"], steps=1, model_parallel=2,
                                      state_dict=jax_tp_step[0]))
             tasks += _checkpoint_tasks(work, one_rank)
+            tasks.append(_train_task("jax_to_tp", *CASES["hypelcnn"], steps=2 * STEPS,
+                                     model_parallel=2, log_dir=str(jax_log / "jax_to_tp"),
+                                     save_checkpoint_steps=STEPS))
         out[name] = run_ranks(tasks, work / f"out_{name}", world=world)
     return out
 
@@ -343,6 +366,19 @@ def test_checkpoint_moves_between_meshes(ranks, one_rank, work):
                                    log_dir=str(resumed_dir), save_checkpoint_steps=STEPS))
     _assert_resumed(resumed, straight, "TP to one rank")
     assert restore_checkpoint(str(resumed_dir))["step"] == 2 * STEPS
+
+
+def test_a_jax_checkpoint_resumes_on_a_model_axis(ranks, one_rank, jax_log):
+    """The JAX package's orbax checkpoint (full-width arrays) resumed on a
+    (1, 2) mesh as one rank resumes it: ``TrainState.restore`` converts it,
+    then cuts each rank's slice."""
+    one = one_rank(_train_task("jax_to_one", *CASES["hypelcnn"], steps=2 * STEPS,
+                               log_dir=str(jax_log / "jax_to_one"), save_checkpoint_steps=STEPS))
+    tp = ranks["1x2"][0]["jax_to_tp"]
+    assert tp["step"] == one["step"] == 2 * STEPS and len(tp["losses"]) == STEPS
+    np.testing.assert_allclose(tp["losses"], one["losses"], rtol=1e-5)
+    _assert_states_close(tp["state"], one["state"], STEPS, "a JAX checkpoint on (1, 2)")
+    assert checkpoint_steps(str(jax_log / "jax_to_tp")) == [STEPS, 2 * STEPS]
 
 
 @pytest.mark.parametrize("mesh", list(MESHES))
