@@ -64,7 +64,9 @@ published JSON, on the same scene (``family_concnn``: k = 5, batch 10;
   kernel and the idle share over 10 traced steps and one traced sweep, and
   the sweep's
   bound, the larger of its float32 FLOP and the bytes it must move (for CAP
-  also the traffic of this implementation's prediction vectors).
+  also the traffic of this implementation's prediction vectors); DUALCNN's
+  whole state (7,783,240 parameters) saved once as an orbax step, timed,
+  and read back bit for bit.
 
 Then the four loader phases. Each writes a dataset directory in its
 loader's own file layout with ``hypelcnn_tpu_torch.data.layouts`` (the
@@ -109,7 +111,7 @@ Then the five GAN phases, on the GRSS2013 layout ``loader_grss2013`` wrote
   peak memory;
 - ``gan_families``: each of the seven families for 10 steps with finite
   losses, its step (median of 3 runs of 5), launches and idle share over 5
-  traced steps, and 3
+  traced steps, and 2
   steps card against CPU from one init on the same batches and pool draws
   (step 1 within 1e-4); dcl_cycle_gan equal to dcl_gan bit for bit under
   cuDNN's deterministic algorithms;
@@ -122,7 +124,7 @@ Then the five GAN phases, on the GRSS2013 layout ``loader_grss2013`` wrote
   generators), and ``translate_scene`` timed both ways beside its bound;
 - ``gan_augmented``: ``gan_params`` installed at GRSS2013's declared
   cycle_gan path, the train CLI at HYPELCNN's full width, batch 48, with
-  ``--augment_data_with_shadow cycle_gan`` at threshold 0.3 for 200 steps,
+  ``--augment_data_with_shadow cycle_gan`` at threshold 0.3 for 100 steps,
   then ``simple`` for 50: the gather's exact launches, 0.25 to 0.35 of the
   windows shadowed, a loss below the first step's, test OA at least 0.9, and
   the step with and without the shadow op.
@@ -146,7 +148,7 @@ Then three phases on the same layout:
   (``tests/torch_fixtures/tf_cycle_gan_144``) at GRSS2013's declared
   ``model.ckpt-5000``: 1,024 pixels shadow and de-shadow on the card as on
   the CPU to 1e-5; the train CLI with ``--augment_data_with_shadow
-  cycle_gan`` for 100 steps: 0.25 to 0.35 of the windows shadowed, a falling
+  cycle_gan`` for 50 steps: 0.25 to 0.35 of the windows shadowed, a falling
   loss, the gather's launches; the reader's seconds, the step beside
   ``gan_augmented``'s.
 - ``jax_log_dir``: the committed orbax checkpoints of the JAX package
@@ -292,8 +294,14 @@ from hypelcnn_tpu_torch.apps import (
     train_for_classification,
 )
 from hypelcnn_tpu_torch.classic.forest import RandomForestClassifier
-from hypelcnn_tpu_torch.compat.flax_to_torch import orbax_payload
-from hypelcnn_tpu_torch.compat.orbax import is_orbax_checkpoint, read_orbax, tree_bytes
+from hypelcnn_tpu_torch.compat.flax_to_torch import ORBAX_TREE, orbax_payload
+from hypelcnn_tpu_torch.compat.ocdbt import OcdbtStore
+from hypelcnn_tpu_torch.compat.orbax import (
+    ITEM_METADATA,
+    is_orbax_checkpoint,
+    read_orbax,
+    tree_bytes,
+)
 from hypelcnn_tpu_torch.core.config import load_algorithm_params
 from hypelcnn_tpu_torch.core.platform import resolve_device
 from hypelcnn_tpu_torch.core.registry import get_importer_from_name, get_model_from_name
@@ -329,6 +337,8 @@ from hypelcnn_tpu_torch.train.checkpoint import (
     restore_checkpoint,
     save_checkpoint,
 )
+from hypelcnn_tpu_torch.train.optimizer import build_optimizer
+from hypelcnn_tpu_torch.train.state import TrainState
 from hypelcnn_tpu_torch.train.trainer import ClassificationTrainer, make_epoch_index_stream
 from hypelcnn_tpu_torch.tune import search as tune_search
 from hypelcnn_tpu_torch.utils import (
@@ -397,11 +407,12 @@ FUSED_PAIRS, FUSED_RUN_STEPS, FUSED_TRACED = 3, 25, 10  # DUALCNN step pairs, un
 # the GAN phases, on the GRSS2013 layout (144 CASI bands)
 GAN_BANDS, GAN_BATCH, GAN_STEPS, GAN_VALIDATION, GAN_RESUME_STEPS = 144, 32, 250, 125, 300
 GAN_TIMED_STEPS, GAN_FAMILY_STEPS, TRANSLATE_CHECKS = 25, 10, 4096
+GAN_CARD_VS_CPU_STEPS = 2  # a family's steps on the card and on the CPU; step 1 is held
 GAN_FAMILIES = ["cycle_gan", "gan_x2y", "gan_y2x", "cut_x2y", "cut_y2x", "dcl_gan",
                 "dcl_cycle_gan"]
-GAN_AUGMENTED_STEPS, SIMPLE_AUGMENTED_STEPS, SHADOW_THRESHOLD = 200, 50, 0.3
+GAN_AUGMENTED_STEPS, SIMPLE_AUGMENTED_STEPS, SHADOW_THRESHOLD = 100, 50, 0.3
 # the search, records and TF checkpoint phases, on the same layout
-SEARCH_STEPS, GAN_SEARCH_STEPS, RECORD_STEPS, TF_AUGMENTED_STEPS = 50, 50, 50, 100
+SEARCH_STEPS, GAN_SEARCH_STEPS, RECORD_STEPS, TF_AUGMENTED_STEPS = 50, 50, 50, 50
 SEARCH_LEARNING_RATE = {"min": 1e-4, "max": 1e-3, "log": True}
 GAN_SPACE = ROOT / "configs" / "gan" / "cycle_gan_flags_opt.json"
 TF_FIXTURE = ROOT / "tests" / "torch_fixtures" / "tf_cycle_gan_144"
@@ -453,6 +464,61 @@ def emit(record: dict) -> None:
 def check(condition: bool, message: str) -> None:
     if not condition:
         raise RuntimeError(message)
+
+
+def _file_bytes(path: Path) -> int:
+    return sum(p.stat().st_size for p in path.rglob("*") if p.is_file())
+
+
+def _same_tree(a, b) -> bool:
+    """Two state trees (dicts and sequences of tensors or arrays) hold the
+    same arrays, bit for bit."""
+    if isinstance(a, dict) or isinstance(b, dict):
+        return (isinstance(a, dict) and isinstance(b, dict) and list(a) == list(b)
+                and all(_same_tree(a[k], b[k]) for k in a))
+    if isinstance(a, (list, tuple)) or isinstance(b, (list, tuple)):
+        return len(a) == len(b) and all(_same_tree(x, y) for x, y in zip(a, b))
+    if a is None or b is None:
+        return a is b
+    a, b = (np.asarray(t.detach().cpu() if isinstance(t, torch.Tensor) else t) for t in (a, b))
+    return a.dtype == b.dtype and a.shape == b.shape and a.tobytes() == b.tobytes()
+
+
+def _check_orbax(*paths: Path) -> None:
+    """Each path is an orbax checkpoint, with no ``.pt`` file in it."""
+    for path in paths:
+        check(is_orbax_checkpoint(str(path)) and not any(path.rglob("*.pt")),
+              f"{path} is not an orbax checkpoint, or holds a .pt file")
+
+
+def _timed_save(state, log_dir: Path) -> dict:
+    """``save_checkpoint`` of ``state`` (a classifier's or a GAN's) into a
+    fresh ``log_dir``: the seconds of its tree (the card's tensors fetched
+    and bridged) and of the write, the files' and the arrays' bytes; the step
+    reads back bit for bit."""
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    tree = state.checkpoint_tree()
+    tree_seconds = time.perf_counter() - start
+    start = time.perf_counter()
+    step_dir = Path(save_checkpoint(str(log_dir), tree))
+    save_seconds = time.perf_counter() - start
+    start = time.perf_counter()
+    read = read_orbax(str(step_dir))
+    read_seconds = time.perf_counter() - start
+    _check_orbax(step_dir)
+    check(_same_tree(tree, read), f"{step_dir} does not read back bit for bit")
+    return {"tree_seconds": tree_seconds, "save_seconds": save_seconds,
+            "read_seconds": read_seconds, "file_bytes": _file_bytes(step_dir),
+            "array_bytes": tree_bytes(read)}
+
+
+def _save_module(log_dir: Path, step: int, module, params: dict) -> None:
+    """Save ``module`` as the state at ``step`` of a run with ``params``'
+    optimizer, its moments not made yet (zero, as optax starts them)."""
+    optimizer, schedule = build_optimizer(params, module.parameters())
+    state = TrainState(step=step, module=module, optimizer=optimizer, schedule=schedule)
+    save_checkpoint(str(log_dir), state.checkpoint_tree())
 
 
 def _note_main_path() -> dict:
@@ -609,7 +675,7 @@ def phase_infer_all(device, work: Path):
     module = _random_module(params, data_shape, gather_patches_torch(
         scene.device_scene("cpu"), calibration, data_shape[0]))
     log_dir, out_dir = work / "log", work / "out"
-    save_checkpoint(str(log_dir), 1, module.state_dict())
+    _save_module(log_dir, 1, module, params)
     n_bands = (HEIGHT + BATCH_ROWS - 1) // BATCH_ROWS
 
     torch.cuda.reset_peak_memory_stats()
@@ -782,6 +848,7 @@ def phase_train(device, work: Path, data, macs: int) -> dict:
     saved = checkpoint_steps(str(log_dir))
     check(all(s in saved for s in range(CHECKPOINT_EVERY, TRAIN_STEPS + 1, CHECKPOINT_EVERY)),
           f"checkpoints at {saved}")
+    _check_orbax(*(log_dir / "checkpoints" / str(s) for s in saved))
 
     # steady state, through the trainer's own step, on the CLI's configuration
     trainer = _trainer(data, params, device, _augmentation())
@@ -793,6 +860,7 @@ def phase_train(device, work: Path, data, macs: int) -> dict:
     runs = [_timed_steps(trainer, state, tables, 20 + TRAIN_TIMED_STEPS * i, TRAIN_TIMED_STEPS)
             / TRAIN_TIMED_STEPS for i in range(3)]
     step_seconds = statistics.median(runs)
+    checkpoint = _timed_save(state, work / "train_saved")
     step_flop = 3 * 2 * macs * TRAIN_BATCH  # forward + backward ~ 3 forwards
     emit({"phase": "train", "steps": TRAIN_STEPS, "batch": TRAIN_BATCH, "targets": counts, **gather,
           "gather_launches_by_batch": {str(b): n for b, n in sorted(by_batch.items())},
@@ -802,7 +870,9 @@ def phase_train(device, work: Path, data, macs: int) -> dict:
           "patches_per_second": TRAIN_BATCH / step_seconds,
           "cli_peak_device_bytes": cli_peak_bytes,
           "steady_peak_device_bytes": torch.cuda.max_memory_allocated(),
-          "flop_per_step": step_flop, "step_bound_seconds": step_flop / FP32_FLOP_PER_S})
+          "flop_per_step": step_flop, "step_bound_seconds": step_flop / FP32_FLOP_PER_S,
+          "checkpoint": checkpoint,
+          "parameters": sum(p.numel() for p in state.module.parameters())})
     return {"log_root": log_root, "log_dir": log_dir, "launches": gather["gather_launches"],
             "trainer": trainer, "state": state, "tables": tables,
             "next_step": 20 + 3 * TRAIN_TIMED_STEPS,
@@ -851,7 +921,14 @@ def phase_resume(device, train) -> None:
     check(result.final_state.step == RESUME_STEPS and
           result.steps_run == RESUME_STEPS - TRAIN_STEPS,
           f"resumed run ran {result.steps_run} steps to {result.final_state.step}")
-    check(RESUME_STEPS in checkpoint_steps(str(train["log_dir"])), "no checkpoint at the end")
+    steps = checkpoint_steps(str(train["log_dir"]))
+    check(RESUME_STEPS in steps, "no checkpoint at the end")
+    _check_orbax(*(train["log_dir"] / "checkpoints" / str(s) for s in steps))
+    # the step the run saved reads back as the run's final state, bit for bit
+    saved = restore_checkpoint(str(train["log_dir"]))
+    check(saved["step"] == RESUME_STEPS
+          and _same_tree(result.final_state.checkpoint_tree(), saved[ORBAX_TREE]),
+          f"the saved step {saved['step']} is not the resumed run's final state")
     check(math.isfinite(result.loss), f"resumed loss {result.loss}")
     emit({"phase": "resume", "resumed_line": resumed[0], "gather_launches": launches,
           "expected_launches": expected, "final_step": result.final_state.step,
@@ -955,6 +1032,7 @@ def phase_family(device, work: Path, family: Family) -> dict:
     launches = window_gather_cuda.launches
     cli_peak_bytes = torch.cuda.max_memory_allocated()
     (log_dir,) = [p for p in log_root.iterdir() if p.is_dir()]
+    _check_orbax(*(log_dir / "checkpoints" / str(s) for s in checkpoint_steps(str(log_dir))))
     losses = _logged_losses(log_dir)
     gather = _check_launches(family.model, by_batch, launches, counts, family.steps, family.batch)
     check(len(losses) > 1 and all(math.isfinite(v) for _, v in losses),
@@ -1020,6 +1098,8 @@ def phase_family(device, work: Path, family: Family) -> dict:
     step_peak_bytes = torch.cuda.max_memory_allocated()
     _, step_profile = _steps_profile(trainer, state, tables, 10 + 3 * FAMILY_TIMED_STEPS,
                                      FAMILY_TRACED_STEPS, top=8)
+    checkpoint = _timed_save(state, work / f"{family.phase}_saved") \
+        if family.model == "DUALCNNModel" else None  # the largest state: 7,783,240 parameters
     torch.cuda.reset_peak_memory_stats()
     # the infer CLI's sweep warmed the same shapes; the timed sweep's map is
     # the kernel sweep's
@@ -1051,7 +1131,8 @@ def phase_family(device, work: Path, family: Family) -> dict:
               "sweep_peak_device_bytes": sweep_peak_bytes, "profile_step": step_profile,
               "profile_sweep": sweep_profile, "flop_per_pixel": 2 * macs,
               "sweep_flop_bound_seconds": flop_bound,
-              "parameters": sum(p.numel() for p in module.parameters())}
+              "parameters": sum(p.numel() for p in module.parameters()),
+              **({"checkpoint": checkpoint} if checkpoint else {})}
     # the function's bound: its FLOP, or the bytes it must move (the device
     # scene and the weights read once, the uint8 class map written once)
     io_bytes = (scene.device_scene(device).numel() + record["parameters"]) * 4 + HEIGHT * WIDTH
@@ -1556,28 +1637,22 @@ def phase_gan_train(device, work: Path, root: Path) -> dict:
         points = json.loads((log_dir / f"best_ratio_{name}.json").read_text())
         check(sorted(p[0] for p in points) == [GAN_VALIDATION, GAN_STEPS],
               f"best_ratio_{name}.json: {points}")
-    for name in (f"ckpt_params_{GAN_VALIDATION}", f"ckpt_params_{GAN_STEPS}", "gan_params"):
-        check((log_dir / name / "params.pt").is_file(), f"no {name} snapshot")
     check(checkpoint_steps(str(log_dir)) == [GAN_VALIDATION, GAN_STEPS],
           f"GAN full states at {checkpoint_steps(str(log_dir))}")
+    _check_orbax(*(log_dir / name for name in (f"ckpt_params_{GAN_VALIDATION}",
+                                               f"ckpt_params_{GAN_STEPS}", "gan_params")),
+                 *(log_dir / "checkpoints" / str(s) for s in (GAN_VALIDATION, GAN_STEPS)))
 
-    # the state the rerun resumes from restores bit for bit
+    # the state the rerun resumes from restores bit for bit: networks, both
+    # optimizers' counts and moments, both pools
     saved = restore_checkpoint(str(log_dir))
     trainer = get_trainer_dict({}, GAN_BANDS, GAN_RESUME_STEPS)["cycle_gan"]
     state = trainer.init_state(device)
     state.restore(saved)
-    again = state.checkpoint()
-    same = (again["step"] == saved["step"] == GAN_STEPS
-            and all(torch.equal(again["state_dict"][k], v) for k, v in saved["state_dict"].items())
-            and all(again["opt_states"][n]["count"] == o["count"]
-                    and all(torch.equal(a, b) for a, b in zip(
-                        again["opt_states"][n]["m"] + again["opt_states"][n]["v"], o["m"] + o["v"]))
-                    for n, o in saved["opt_states"].items())
-            and all(again["pools"][n]["count"] == p["count"]
-                    and torch.equal(again["pools"][n]["buffer"], p["buffer"])
-                    and torch.equal(again["pools"][n]["inputs_buffer"], p["inputs_buffer"])
-                    for n, p in saved["pools"].items()))
-    check(same, "the restored GAN state differs from the saved one")
+    check(saved["step"] == state.step == GAN_STEPS
+          and _same_tree(state.checkpoint_tree(), saved[ORBAX_TREE]),
+          "the restored GAN state differs from the saved one")
+    checkpoint = _timed_save(state, work / "gan_saved")
     start = time.perf_counter()
     _, out = _run_quiet(gan_train_for_shadow.main, _gan_args(root, base, GAN_RESUME_STEPS))
     resume_seconds = time.perf_counter() - start
@@ -1596,13 +1671,14 @@ def phase_gan_train(device, work: Path, root: Path) -> dict:
           "batch": GAN_BATCH, "steps": GAN_STEPS, "cadence_losses": losses,
           "divergences": divergences, "cli_seconds": cli_seconds, "cli_peak_device_bytes": cli_peak,
           "resumed_line": resumed[0], "resume_cli_seconds": resume_seconds,
+          "checkpoint": checkpoint,
           **{k: v for k, v in step.items() if k != "profile"}, "profile": step["profile"]})
     return {"log_dir": log_dir, "pairs": pairs}
 
 
 def phase_gan_families(device, pairs: dict) -> dict:
     """Each of the seven GAN families on the device pairs at batch 32:
-    ``GAN_FAMILY_STEPS`` steps with finite losses, the step's numbers, and 3 steps on the card
+    ``GAN_FAMILY_STEPS`` steps with finite losses, the step's numbers, and 2 steps on the card
     against the CPU from one init, on the same batches and pool draws; then
     dcl_cycle_gan against dcl_gan, bit for bit under cuDNN's deterministic
     algorithms."""
@@ -1637,18 +1713,19 @@ def phase_gan_families(device, pairs: dict) -> dict:
 
 
 def _gan_card_vs_cpu(family: str, pairs: dict, device) -> dict:
-    """3 steps from one init on the same batches and injected pool draws, on
-    the card and on the CPU; step 1 within 1e-4 (relative)."""
+    """``GAN_CARD_VS_CPU_STEPS`` steps from one init on the same batches and
+    injected pool draws, on the card and on the CPU; step 1 within 1e-4
+    (relative)."""
     trainer = get_trainer_dict({}, GAN_BANDS, 3)[family]
     weights = trainer.init_state("cpu", torch.Generator().manual_seed(SEED)).nets.state_dict()
     gen = torch.Generator().manual_seed(SEED)
     rows = [torch.randint(0, pairs["normal"].shape[0], (GAN_BATCH,), generator=gen)
-            for _ in range(3)]
+            for _ in range(GAN_CARD_VS_CPU_STEPS)]
     batches = [(pairs["normal"][r.to(device)].cpu(), pairs["shadow"][r.to(device)].cpu())
                for r in rows]
     draws = [{name: (torch.randperm(50, generator=gen)[:GAN_BATCH],
                      torch.rand(GAN_BATCH, generator=gen) < 0.5) for name in trainer.pool_names}
-             for _ in range(3)]
+             for _ in range(GAN_CARD_VS_CPU_STEPS)]
     losses = {}
     for name, where in (("card", device), ("cpu", torch.device("cpu"))):
         state = trainer.init_state(where, state_dict=weights)
@@ -1835,7 +1912,7 @@ def _augmented_step(data, info, device) -> dict:
 def phase_gan_augmented(device, work: Path, root: Path, log_dir: Path) -> dict:
     """The GAN's ``gan_params`` installed at GRSS2013's declared cycle_gan
     path; the train CLI at HYPELCNN's full width, batch 48, with cycle_gan
-    shadow augmentation at threshold 0.3 for 200 steps, then 50 with
+    shadow augmentation at threshold 0.3 for 100 steps, then 50 with
     ``simple``; the share of windows shadowed, the gather's launches, a
     falling loss and test OA; the step with and without the shadow op."""
     loader = GRSS2013DataLoader(str(root))
@@ -2095,10 +2172,51 @@ def phase_tf_checkpoint(device, work: Path, root: Path, augmented: dict) -> dict
             "eval_batches": run["gather_launches"]["eval_batches"]}
 
 
+def _as_jax_held(tree, value_types: dict, path=()):
+    """``tree`` (``read_orbax``'s numpy leaves) with each leaf as JAX held it
+    when it saved: a tensor where ``value_types`` (by the key path's
+    ``str(tuple)``) says ``jax.Array``, else the numpy array."""
+    if isinstance(tree, dict):
+        return {k: _as_jax_held(v, value_types, path + (k,)) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_as_jax_held(v, value_types, path + (str(i),)) for i, v in enumerate(tree)]
+    held = value_types[str(path)] == "jax.Array"
+    return torch.from_numpy(tree) if held else tree
+
+
+def _resave_jax_step(step_dir: Path, tree: dict, log_dir: Path) -> dict:
+    """The committed JAX step re-saved by the port's writer into ``log_dir``:
+    its ``_METADATA`` tree equals the one JAX wrote, key for key and in
+    order (path, key types, value type, write shape), its store holds the
+    same keys and ``.zarray`` specs, and every array reads back bit for bit."""
+    metadata = json.loads((step_dir / "default" / ITEM_METADATA).read_text())["tree_metadata"]
+    value_types = {name: entry["value_metadata"]["value_type"]
+                   for name, entry in metadata.items()}
+    start = time.perf_counter()
+    resaved = Path(save_checkpoint(str(log_dir), _as_jax_held(tree, value_types)))
+    seconds = time.perf_counter() - start
+    check(resaved.name == step_dir.name, f"re-saved as step {resaved.name}")
+    ours = json.loads((resaved / "default" / ITEM_METADATA).read_text())["tree_metadata"]
+    check(list(ours.items()) == list(metadata.items()),
+          "the re-saved _METADATA differs from JAX's: "
+          f"{[k for k in metadata if ours.get(k) != metadata[k]][:5]}")
+    theirs_store, ours_store = (OcdbtStore(str(d / "default")) for d in (step_dir, resaved))
+    keys = theirs_store.list()
+    check(ours_store.list() == keys, "the re-saved store's keys differ from JAX's")
+    specs = [k for k in keys if k.endswith(b"/.zarray")]
+    differ = [k for k in specs if ours_store.read(k) != theirs_store.read(k)]
+    check(not differ, f"re-saved .zarray specs differ from JAX's: {differ[:5]}")
+    check(_same_tree(tree, read_orbax(str(resaved))), "the re-saved arrays differ from JAX's")
+    return {"save_seconds": seconds, "leaves": len(metadata), "zarray_specs": len(specs),
+            "file_bytes": _file_bytes(resaved), "fixture_file_bytes": _file_bytes(step_dir),
+            "array_bytes": tree_bytes(tree)}
+
+
 def phase_jax_log_dir(device, work: Path, root: Path, data) -> dict:
     """The JAX package's orbax checkpoints (committed under
     ``tests/torch_fixtures``, as the JAX package wrote them) read by the
-    port: the decode's seconds and bytes; the infer CLI on a log dir holding
+    port: the decode's seconds and bytes; the step re-saved by the port's
+    writer, with JAX's metadata, specs and arrays; the infer CLI on a log dir holding
     the JAX step, whose map must be JAX's but at the pixels whose two top
     logits JAX found within 1e-4; the train CLI resuming the JAX step for
     ``JAX_RESUMED_STEPS`` (its exact launches), the first resumed step on the
@@ -2112,8 +2230,10 @@ def phase_jax_log_dir(device, work: Path, root: Path, data) -> dict:
         start = time.perf_counter()
         trees[name] = read_orbax(str(path))
         decode[name] = {"seconds": time.perf_counter() - start,
-                        "file_bytes": sum(p.stat().st_size for p in path.rglob("*") if p.is_file()),
+                        "file_bytes": _file_bytes(path),
                         "array_bytes": tree_bytes(trees[name])}
+
+    resaved = _resave_jax_step(step_dir, trees["train_state"], work / "jax_resaved")
 
     # a log dir holding the JAX step, where the train CLI's flags name it
     log_root = work / "jax_log"
@@ -2194,7 +2314,8 @@ def phase_jax_log_dir(device, work: Path, root: Path, data) -> dict:
     run = _augmented_cli(work, root, "cycle_gan", JAX_AUGMENTED_STEPS, read["targets"])
     emit({"phase": "jax_log_dir", "fixture": str(JAX_FIXTURE.relative_to(ROOT)),
           "gan_fixture": str(JAX_GAN_FIXTURE.relative_to(ROOT)), "saved_step": saved,
-          "decode": decode, "infer_cli_seconds": infer_seconds, "infer_launches": bands,
+          "decode": decode, "resaved": resaved,
+          "infer_cli_seconds": infer_seconds, "infer_launches": bands,
           "pixels_differ": int(differ.sum()), "jax_ties": int(ties.sum()),
           "train_cli_seconds": train_seconds, "resumed_line": resumed[0],
           "gather_launches": launches, "expected_launches": expected,
@@ -2567,9 +2688,9 @@ def _rank_tp(task: dict, device) -> dict:
            "data_rank": mesh.data_rank, "model_rank": mesh.model_rank,
            "backend": torch.distributed.get_backend()}
     if task.get("log_dir"):
-        payload = state.checkpoint()  # every rank: the shards are gathered
+        tree = state.checkpoint_tree()  # every rank: the shards are gathered
         if dist_rank() == 0:
-            save_checkpoint(task["log_dir"], **payload)
+            save_checkpoint(task["log_dir"], tree)
         mesh.barrier()
         start = time.perf_counter()
         out["test"] = trainer.evaluate(state, "test").confusion.tolist()

@@ -14,11 +14,12 @@ each step selects its rows by the step's row of an epoch-shuffled index
 stream (bit-equal to the JAX package's), with no host read. At every
 validation cadence the CLI prints the generator loss, validates both
 directions (``best_ratio_*.json``), and writes a params snapshot
-(``ckpt_params_N``) and the full state (``checkpoints/N/state.pt``, the last
-``step // validation_steps`` kept); at the end ``gan_params``, which
+(``ckpt_params_N``) and the full state (``checkpoints/N``, the last
+``step // validation_steps`` kept), each an orbax checkpoint the JAX
+package reads; at the end ``gan_params``, which
 ``gan_infer_for_shadow``, ``gan_infer_image_for_shadow`` and the classifier's
 ``--augment_data_with_shadow`` read. A log dir that holds a full state is
-resumed from, the JAX package's (an orbax checkpoint) as well.
+resumed from, the JAX package's as well.
 
 Under ``torchrun`` with more than one rank the trainer runs data-parallel
 (``use_mesh``): every rank draws the same global batch (and its
@@ -235,7 +236,7 @@ def run_session(params, base_log_path, device) -> List[float]:
             validator.run(trainer.host_translator(state.nets, True),
                           trainer.host_translator(state.nets, False), start, plot=True)
             save_params(os.path.join(log_dir, f"ckpt_params_{start}"), state.nets.state_dict())
-            save_checkpoint(log_dir, max_to_keep=keep, **state.checkpoint())
+            save_checkpoint(log_dir, state.checkpoint_tree(), max_to_keep=keep)
         if mesh is not None:
             mesh.barrier()  # no rank reads a checkpoint before it exists
 

@@ -10,8 +10,10 @@ is none raises before anything is read or written)::
         --algorithm_param_path=configs/modelconfigs/alg_param_hypelcnn.json --batch_size=48 \\
         --step=600 --save_checkpoint_steps=200 --base_log_path=LOG_ROOT
 
-The run writes ``<base_log_path>/<suffix>/checkpoints/<step>/state.pt``, which
-``infer_for_classification --base_log_path=<base_log_path>/<suffix>`` reads. A
+The run writes ``<base_log_path>/<suffix>/checkpoints/<step>/``, an orbax
+checkpoint of the JAX package's ``TrainState``, which
+``infer_for_classification --base_log_path=<base_log_path>/<suffix>`` reads,
+and the JAX package's CLIs as well. A
 log dir that already holds a checkpoint is resumed from: at or past
 ``--step`` nothing trains, the printed loss is ``nan`` and the accuracies are
 those of the restored model.

@@ -20,7 +20,8 @@ variable path maps to a ``state_dict`` key by name:
 Every source leaf is used exactly once; a leaf of any other name raises.
 ``flax_variables`` goes the other way, from a port ``state_dict`` to the
 flax-shaped ``params`` and ``batch_stats`` trees, so that code written
-against flax names (the TF checkpoint import) fills a port module.
+against flax names (the TF checkpoint import, the orbax writer) fills a
+port module or a JAX tree.
 
 The JAX package's saved states (read from orbax with
 :func:`hypelcnn_tpu_torch.compat.orbax.read_orbax`) come across whole:
@@ -38,6 +39,23 @@ The JAX package's saved states (read from orbax with
   checkpoint: an optimizer named ``a.b`` is ``opt_states["a"]["b"]``, whose
   moments are the tree of its one network, or of several keyed by their
   names (cycle_gan's joint ``generators``); the pools keep their buffers.
+
+and go back whole, as the trees the JAX package's trainers save (each
+node in the order JAX flattens it: a dataclass's fields in order, a dict's
+keys sorted; every leaf a ``torch.Tensor``, which the orbax writer saves as
+a ``jax.Array``; steps and counts int32):
+
+- :func:`train_state_tree` is the inverse of :func:`orbax_payload` and
+  :func:`optimizer_state_dict`: ``TrainState(step, params, batch_stats,
+  opt_state)`` with ``opt_state = (ScaleByAdamState(count, mu, nu) or
+  TraceState(trace), ScaleByScheduleState(count))``; Adam's count is its
+  own step count, the schedule's the state's step;
+- :func:`gan_state_tree` is the inverse of :func:`gan_state_payload`:
+  ``GANState(step, params, opt_states, pool)``, each optimizer nested by its
+  dotted name, a one-network optimizer's moments that network's tree, one
+  pool un-nested, several keyed by name, none ``None``;
+- :func:`snapshot_tree` is a params snapshot's tree, numpy leaves, as the
+  JAX package saves ``jax.device_get`` of a GAN's params.
 """
 
 from __future__ import annotations
@@ -142,6 +160,13 @@ def _flax_leaf(path: Tuple[str, ...], ndim: int):
     return None
 
 
+def _sorted(tree):
+    """``tree`` with every dict's keys in sorted order."""
+    if isinstance(tree, dict):
+        return {key: _sorted(tree[key]) for key in sorted(tree)}
+    return tree
+
+
 def flax_variables(state_dict: Mapping[str, torch.Tensor]) -> Tuple[dict, dict]:
     """The flax ``(params, batch_stats)`` trees (numpy leaves) that
     :func:`variables_to_state_dict` maps to ``state_dict``."""
@@ -237,3 +262,89 @@ def gan_state_payload(tree: Mapping, nets: torch.nn.Module,
     return {"step": int(np.asarray(tree["step"])),
             "state_dict": variables_to_state_dict(tree["params"]),
             "opt_states": opt_states, "pools": saved_pools}
+
+
+def _int32(value) -> torch.Tensor:
+    return torch.tensor(int(value), dtype=torch.int32)
+
+
+def _tensors(tree):
+    """A tree of numpy leaves as one of CPU tensors (sharing their memory)."""
+    if isinstance(tree, dict):
+        return {key: _tensors(value) for key, value in tree.items()}
+    return torch.from_numpy(np.ascontiguousarray(tree))
+
+
+def snapshot_tree(state_dict: Mapping[str, torch.Tensor]) -> dict:
+    """The sorted flax ``params`` tree (numpy leaves) of a ``state_dict``
+    that holds parameters only."""
+    params, others = flax_variables(state_dict)
+    if others:
+        raise KeyError(f"a params tree holds no batch statistics: {sorted(others)}")
+    return _sorted(params)
+
+
+def _moment_tree(moments: Mapping[str, torch.Tensor]) -> dict:
+    """The flax ``params``-shaped tree of per-parameter moments."""
+    return _tensors(snapshot_tree(moments))
+
+
+def train_state_tree(checkpoint: Mapping[str, Any], module: torch.nn.Module,
+                     optimizer: torch.optim.Optimizer) -> Dict[str, Any]:
+    """The JAX ``TrainState`` tree of a :meth:`TrainState.checkpoint
+    <hypelcnn_tpu_torch.train.state.TrainState.checkpoint>` dict; ``module``
+    names the parameters and ``optimizer`` says which optax state they had.
+    A moment the optimizer has not made yet is zero, as optax starts it."""
+    state_dict = checkpoint["state_dict"]
+    names = [name for name, _ in module.named_parameters()]
+    state = checkpoint["optimizer"]["state"]
+
+    def moment(key: str) -> dict:
+        return _moment_tree({name: state[i][key] if key in state.get(i, {})
+                             else torch.zeros_like(state_dict[name])
+                             for i, name in enumerate(names)})
+
+    if isinstance(optimizer, torch.optim.Adam):
+        count = int(state[0]["step"]) if state.get(0) else 0
+        first = {"count": _int32(count), "mu": moment("exp_avg"), "nu": moment("exp_avg_sq")}
+    elif isinstance(optimizer, torch.optim.SGD):
+        first = {"trace": moment("momentum_buffer")}
+    else:
+        raise ValueError(f"no optax state for {type(optimizer).__name__}")
+    params, batch_stats = flax_variables(state_dict)
+    step = _int32(checkpoint["step"])
+    return {"step": step, "params": _tensors(_sorted(params)),
+            "batch_stats": _tensors(_sorted(batch_stats)),
+            "opt_state": [first, {"count": step.clone()}]}
+
+
+def gan_state_tree(checkpoint: Mapping[str, Any], nets: torch.nn.Module,
+                   optimizers: Mapping[str, List[str]], pools: Sequence[str]
+                   ) -> Dict[str, Any]:
+    """The JAX ``GANState`` tree of a ``GANState.checkpoint`` dict (the
+    inverse of :func:`gan_state_payload`, with the same arguments)."""
+    opt_states: dict = {}
+    for name, paths in optimizers.items():
+        entry = checkpoint["opt_states"][name]
+        names = [f"{path}.{leaf}" for path in paths
+                 for leaf, _ in nets.get_submodule(path).named_parameters()]
+        moments = []
+        for key in ("m", "v"):
+            tree = _moment_tree(dict(zip(names, entry[key])))
+            if len(paths) == 1:  # the one network's own tree
+                for part in paths[0].split("."):
+                    tree = tree[part]
+            moments.append(tree)
+        node = opt_states
+        *parents, last = name.split(".")
+        for part in parents:
+            node = node.setdefault(part, {})
+        node[last] = {"count": _int32(entry["count"]), "mu": moments[0], "nu": moments[1]}
+    saved = {name: {"buffer": checkpoint["pools"][name]["buffer"],
+                    "inputs_buffer": checkpoint["pools"][name]["inputs_buffer"],
+                    "count": _int32(checkpoint["pools"][name]["count"])}
+             for name in sorted(pools)}
+    pool = saved["pool"] if tuple(pools) == ("pool",) else saved or None
+    return {"step": _int32(checkpoint["step"]),
+            "params": _tensors(snapshot_tree(checkpoint["state_dict"])),
+            "opt_states": _sorted(opt_states), "pool": pool}

@@ -22,12 +22,21 @@ a file whose base path is ``B`` prefixes ``B`` to its own, which is how the
 top-level database orbax merges from its processes' databases
 (``ocdbt.process_N/``) reaches their files. :class:`OcdbtStore` reads the
 newest version of the tree.
+
+:class:`OcdbtWriter` writes a new database of one version: the values and
+then a single leaf node in one data file under ``d/``, each value up to
+``max_inline_value_bytes`` inline in the leaf and each larger one indirect,
+then the manifest. The node and the manifest are stored uncompressed; the
+manifest's configuration is the one orbax writes (values inline up to 1 KiB,
+nodes up to 100 MB decoded, version-tree arity 16, zstd for new nodes), so a
+store it writes is one orbax would have written a merged database as.
 """
 
 from __future__ import annotations
 
 import os
 import struct
+import time
 from typing import Dict, Iterator, List, Optional, Tuple
 
 from hypelcnn_tpu_torch.compat import FormatNotRead, zstd
@@ -36,6 +45,11 @@ from hypelcnn_tpu_torch.utils.tb_events import crc32c
 MANIFEST_MAGIC = 0x0CDB3A2A
 NODE_MAGIC = 0x0CDB20DE
 MANIFEST_FILE = "manifest.ocdbt"
+# the configuration orbax gives its stores
+MAX_INLINE_VALUE_BYTES = 1024
+MAX_DECODED_NODE_BYTES = 100_000_000
+VERSION_TREE_ARITY_LOG2 = 4
+ZSTD_COMPRESSION, ZSTD_LEVEL = 1, 0
 
 
 class OcdbtError(ValueError):
@@ -243,3 +257,121 @@ class OcdbtStore:
             return value[1]
         _, data_file, offset, length = value
         return self._bytes(data_file, offset, length)
+
+
+# ------------------------------------------------------------------ writer ----
+
+def _varint(value: int) -> bytes:
+    out = bytearray()
+    while value >= 0x80:
+        out.append(value & 0x7F | 0x80)
+        value >>= 7
+    out.append(value)
+    return bytes(out)
+
+
+def _varints(values) -> bytes:
+    return b"".join(_varint(v) for v in values)
+
+
+def _framed(magic: int, body: bytes) -> bytes:
+    """``body`` framed as a file or node, uncompressed, with its checksum."""
+    head = struct.pack(">I", magic)
+    tail = _varint(0) + _varint(0) + body  # format version 0, compression 0
+    length = len(head) + 8 + len(tail) + 4
+    data = head + struct.pack("<Q", length) + tail
+    return data + struct.pack("<I", crc32c(data))
+
+
+def _one_file_table(relative_path: str) -> bytes:
+    """The data file table of one file under the database root."""
+    path = relative_path.encode()
+    return _varint(1) + _varint(len(path)) + _varint(0) + path
+
+
+class OcdbtWriter:
+    """A new OCDBT database in directory ``root`` (which must not exist):
+    :meth:`put` each key's value (indirect values go to the data file at
+    once), then :meth:`close` writes the leaf node and the manifest. A writer
+    left by an exception writes no manifest, so no store is there to read."""
+
+    def __init__(self, root: str):
+        self.root = os.path.abspath(root)
+        os.makedirs(os.path.join(self.root, "d"))
+        self._data_path = "d/" + os.urandom(16).hex()
+        self._file = open(os.path.join(self.root, self._data_path), "wb")
+        self._offset = 0
+        self._entries: Dict[bytes, tuple] = {}
+
+    def put(self, key, value) -> None:
+        """Store ``value`` (bytes-like) under ``key`` (``str`` or ``bytes``)."""
+        if isinstance(key, str):
+            key = key.encode()
+        if key in self._entries:
+            raise OcdbtError(f"{self.root}: key {key!r} written twice")
+        size = memoryview(value).nbytes
+        if size <= MAX_INLINE_VALUE_BYTES:
+            self._entries[key] = ("inline", bytes(value))
+            return
+        self._file.write(value)
+        self._entries[key] = ("indirect", self._offset, size)
+        self._offset += size
+
+    def _leaf(self) -> Tuple[bytes, int]:
+        """The leaf node of every key, and the bytes of its indirect values."""
+        keys = sorted(self._entries)
+        prefixes, previous = [], b""
+        for key in keys:
+            common = 0
+            for a, b in zip(previous, key):
+                if a != b:
+                    break
+                common += 1
+            prefixes.append(common)
+            previous = key
+        values = [self._entries[key] for key in keys]
+        indirect = [v for v in values if v[0] == "indirect"]
+        body = b"".join([
+            bytes([0]),  # height: a leaf
+            _one_file_table(self._data_path),
+            _varint(len(keys)), _varints(prefixes[1:]),
+            _varints(len(k) - p for k, p in zip(keys, prefixes)),
+            b"".join(k[p:] for k, p in zip(keys, prefixes)),
+            _varints(len(v[1]) if v[0] == "inline" else v[2] for v in values),
+            _varints(0 if v[0] == "inline" else 1 for v in values),
+            _varints(0 for _ in indirect), _varints(v[1] for v in indirect),
+            b"".join(v[1] for v in values if v[0] == "inline")])
+        return _framed(NODE_MAGIC, body), sum(v[2] for v in indirect)
+
+    def close(self) -> None:
+        """Write the leaf node after the values, then the manifest."""
+        node, indirect_bytes = self._leaf()
+        node_offset = self._offset
+        self._file.write(node)
+        self._file.close()
+        config = b"".join([
+            os.urandom(16),  # the database's uuid
+            _varint(0),  # a single-file manifest
+            _varint(MAX_INLINE_VALUE_BYTES), _varint(MAX_DECODED_NODE_BYTES),
+            bytes([VERSION_TREE_ARITY_LOG2]),
+            _varint(ZSTD_COMPRESSION), struct.pack("<i", ZSTD_LEVEL)])
+        version = b"".join([
+            _varint(1),  # one version, generation 1, its root the leaf (height 0)
+            _varint(1), bytes([0]),
+            _varint(0), _varint(node_offset), _varint(len(node)),
+            _varints([len(self._entries), len(node), indirect_bytes]),
+            struct.pack("<Q", time.time_ns()),  # its commit time
+            _varint(0)])  # no version-tree nodes
+        manifest = _framed(MANIFEST_MAGIC,
+                           config + _one_file_table(self._data_path) + version)
+        with open(os.path.join(self.root, MANIFEST_FILE), "wb") as f:
+            f.write(manifest)
+
+    def __enter__(self) -> "OcdbtWriter":
+        return self
+
+    def __exit__(self, kind, value, traceback) -> None:
+        if kind is None:
+            self.close()
+        else:
+            self._file.close()

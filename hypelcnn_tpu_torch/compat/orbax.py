@@ -1,4 +1,5 @@
-"""Reads the orbax checkpoints the JAX package writes, into numpy.
+"""Reads the orbax checkpoints the JAX package writes, into numpy, and
+writes them.
 
 Two layouts, both orbax ``StandardSave`` items:
 
@@ -20,6 +21,21 @@ An item without OCDBT, zarr v3, Fortran order, a compressor other than
 zstd or none, zarr filters, and a dtype numpy does not name (bfloat16
 among them) are refused by name, with the file, as
 :class:`~hypelcnn_tpu_torch.compat.FormatNotRead`.
+
+:func:`write_orbax` writes either layout as orbax 0.11 writes it for a
+process of one device: each leaf one zarr v2 array of one chunk (zstd frames
+of raw blocks, :func:`~.zstd.encode`) in one OCDBT store
+(:class:`~.ocdbt.OcdbtWriter`), the item's ``_METADATA`` and
+``array_metadatas/process_0``, and ``_CHECKPOINT_METADATA``. A leaf's type
+says what JAX held: a ``torch.Tensor`` is written as a ``jax.Array`` (with
+its write shape), what a trainer's device state saves; a numpy array as an
+``np.ndarray``, what a state fetched to the host (``jax.device_get``)
+saves. ``None`` and an empty dict are written as orbax writes them. The
+checkpoint is built in a temporary sibling directory
+(``<name>.orbax-checkpoint-tmp-<ns>``, as orbax names it) and renamed into
+place, so a write that dies leaves no directory a reader takes for a
+checkpoint; the next write into the same directory removes what such a
+write left (one writer to a directory, as orbax's manager assumes). bfloat16 is refused by name, as the reader refuses it.
 """
 
 from __future__ import annotations
@@ -28,16 +44,25 @@ import itertools
 import json
 import math
 import os
-from typing import Any, Dict
+import shutil
+import time
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
+import torch
 
 from hypelcnn_tpu_torch.compat import FormatNotRead, zstd
-from hypelcnn_tpu_torch.compat.ocdbt import OcdbtStore
+from hypelcnn_tpu_torch.compat.ocdbt import OcdbtStore, OcdbtWriter
 
 CHECKPOINT_METADATA = "_CHECKPOINT_METADATA"
 ITEM_METADATA = "_METADATA"
+ARRAY_METADATA = os.path.join("array_metadatas", "process_0")
+TMP_MARK = ".orbax-checkpoint-tmp-"  # a checkpoint being written: <name><TMP_MARK><ns>
 _SEQUENCE_KEY = 1  # orbax's key_type of a list or tuple index
+_DICT_KEY = 2  # orbax's key_type of a dict key or a dataclass field
+STANDARD_HANDLER = ("orbax.checkpoint._src.handlers.standard_checkpoint_handler."
+                    "StandardCheckpointHandler")
+ZARR_COMPRESSOR = {"id": "zstd", "level": 1}  # the spec orbax writes (this writer stores raw)
 _PORT_FILES = ("state.pt", "params.pt")
 
 
@@ -171,3 +196,106 @@ def read_orbax(path: str) -> Dict[str, Any]:
             continue
         _insert(tree, keys, _read_array(store, ".".join(str(k) for k in keys), item))
     return _as_sequences(tree, sequences)
+
+
+# ------------------------------------------------------------------ writer ----
+
+_EMPTY_TYPES = ((type(None), "None"), (dict, "Dict"))  # a GAN's absent pool, no batch norm
+
+
+def _flatten(node, keys=()) -> List[Tuple[tuple, Any]]:
+    """``(key path, leaf)`` in order: dicts in their own order (the caller
+    orders them as JAX flattens the tree), sequences by index; a path part
+    is ``(key, key_type)``. An empty dict or None is a leaf."""
+    if isinstance(node, dict) and node:
+        return [pair for key, value in node.items()
+                for pair in _flatten(value, keys + ((str(key), _DICT_KEY),))]
+    if isinstance(node, (list, tuple)) and node:
+        return [pair for index, value in enumerate(node)
+                for pair in _flatten(value, keys + ((str(index), _SEQUENCE_KEY),))]
+    return [(keys, node)]
+
+
+def _host_array(leaf, where: str) -> np.ndarray:
+    if isinstance(leaf, torch.Tensor):
+        if leaf.dtype == torch.bfloat16:
+            raise FormatNotRead(f"{where}: dtype bfloat16 is not written")
+        leaf = leaf.detach().cpu().numpy()
+    array = np.asarray(leaf)
+    if array.dtype.kind not in "biuf":
+        raise FormatNotRead(f"{where}: dtype {array.dtype} is not written")
+    return np.require(array, array.dtype.newbyteorder("<"), "C")  # keeps a scalar 0-d
+
+
+def _write_item(item: str, tree) -> None:
+    """The item directory ``item``: its OCDBT store of zarr arrays, ``_METADATA``
+    and, when it holds a ``jax.Array``, ``array_metadatas/process_0``."""
+    tree_metadata, array_metadatas = {}, []
+    with OcdbtWriter(item) as store:
+        for keys, leaf in _flatten(tree):
+            name = ".".join(key for key, _ in keys)
+            entry = {"key_metadata": [{"key": key, "key_type": kind} for key, kind in keys]}
+            tree_metadata[str(tuple(key for key, _ in keys))] = entry
+            empty = next((kind for cls, kind in _EMPTY_TYPES if isinstance(leaf, cls)), None)
+            if empty is not None:
+                entry["value_metadata"] = {"value_type": empty, "skip_deserialize": True}
+                continue
+            array = _host_array(leaf, f"{item}: leaf {name}")
+            shape = list(array.shape)
+            if isinstance(leaf, torch.Tensor):
+                entry["value_metadata"] = {"value_type": "jax.Array", "skip_deserialize": False,
+                                           "write_shape": shape}
+                array_metadatas.append({"array_metadata": {
+                    "param_name": name, "write_shape": shape, "chunk_shape": shape,
+                    "ext_metadata": None}})
+            else:
+                entry["value_metadata"] = {"value_type": "np.ndarray", "skip_deserialize": False}
+            spec = {"chunks": shape, "compressor": ZARR_COMPRESSOR, "dimension_separator": ".",
+                    "dtype": array.dtype.str, "fill_value": None, "filters": None,
+                    "order": "C", "shape": shape, "zarr_format": 2}
+            store.put(f"{name}/.zarray", json.dumps(spec, separators=(",", ":"),
+                                                    sort_keys=True).encode())
+            chunk = ".".join("0" for _ in shape) or "0"
+            store.put(f"{name}/{chunk}", zstd.encode(memoryview(array).cast("B")))
+    with open(os.path.join(item, ITEM_METADATA), "w") as f:
+        json.dump({"tree_metadata": tree_metadata, "use_ocdbt": True, "use_zarr3": False,
+                   "store_array_data_equal_to_fill_value": True, "custom_metadata": None}, f)
+    if array_metadatas:
+        os.makedirs(os.path.dirname(os.path.join(item, ARRAY_METADATA)))
+        with open(os.path.join(item, ARRAY_METADATA), "w") as f:
+            json.dump({"array_metadatas": array_metadatas}, f)
+
+
+def write_orbax(path: str, tree, item: Optional[str] = None, replace: bool = False) -> str:
+    """Write ``tree`` (nested dicts and sequences of arrays) as the orbax
+    checkpoint directory ``path``: a checkpoint manager's step whose one item
+    is ``item`` (``"default"``), or, when ``item`` is None, a
+    ``StandardCheckpointer`` directory. An existing ``path`` raises
+    ``FileExistsError``, or with ``replace`` is replaced once the new one
+    is whole. Returns ``path``."""
+    path = os.path.abspath(path)
+    if os.path.exists(path) and not replace:
+        raise FileExistsError(f"{path} exists; a checkpoint is written once")
+    parent = os.path.dirname(path)
+    if os.path.isdir(parent):
+        for name in os.listdir(parent):
+            if TMP_MARK in name:  # left by a write that died
+                shutil.rmtree(os.path.join(parent, name), ignore_errors=True)
+    started = time.time_ns()
+    tmp = f"{path}{TMP_MARK}{started}"
+    os.makedirs(tmp)
+    try:
+        _write_item(tmp if item is None else os.path.join(tmp, item), tree)
+        metadata = {"item_handlers": STANDARD_HANDLER if item is None
+                    else {item: STANDARD_HANDLER},
+                    "metrics": {}, "performance_metrics": {}, "init_timestamp_nsecs": started,
+                    "commit_timestamp_nsecs": time.time_ns(), "custom_metadata": {}}
+        with open(os.path.join(tmp, CHECKPOINT_METADATA), "w") as f:
+            json.dump(metadata, f)
+        if os.path.exists(path):
+            shutil.rmtree(path)
+        os.rename(tmp, path)
+    except BaseException:
+        shutil.rmtree(tmp, ignore_errors=True)
+        raise
+    return path

@@ -16,6 +16,11 @@ that need a dictionary:
   rule, and matches back into earlier blocks of the frame;
 - the XXH64 content checksum, checked when the frame header sets it.
 
+:func:`encode` writes the frames the port's orbax checkpoints hold: the
+content in raw (stored) blocks, with its size in the header and no checksum.
+Any decoder reads them; full-entropy float32 weights would not compress by
+much anyway.
+
 A frame that names a dictionary raises
 :class:`~hypelcnn_tpu_torch.compat.FormatNotRead`; any corruption the format
 lets a decoder see raises :class:`ZstdError`.
@@ -683,3 +688,30 @@ def decompress(data: bytes) -> bytes:
         else:
             raise ZstdError(f"not a zstd frame (magic {magic:#010x})")
     return bytes(out)
+
+
+def encode(data) -> bytes:
+    """A zstd frame that stores ``data`` in raw blocks of at most 128 KiB,
+    its content size in the header and no checksum. Up to 128 KiB the frame
+    is a single segment (its window is its content); above, the window is
+    128 KiB, as no block refers back to another."""
+    data = memoryview(data).cast("B")
+    size = len(data)
+    single_segment = size <= MAX_BLOCK_SIZE
+    if size < 256 and single_segment:
+        size_flag, size_field = 0, size.to_bytes(1, "little")
+    elif size < 256 + (1 << 16):
+        size_flag, size_field = 1, (size - 256).to_bytes(2, "little")
+    elif size < 1 << 32:
+        size_flag, size_field = 2, size.to_bytes(4, "little")
+    else:
+        size_flag, size_field = 3, size.to_bytes(8, "little")
+    header = struct.pack("<IB", ZSTD_MAGIC, size_flag << 6 | single_segment << 5)
+    if not single_segment:
+        header += bytes([(17 - 10) << 3])  # the window: exponent 7, mantissa 0, 2**17 bytes
+    pieces = [header, size_field]
+    for start in range(0, max(size, 1), MAX_BLOCK_SIZE):
+        block = data[start:start + MAX_BLOCK_SIZE]
+        last = start + MAX_BLOCK_SIZE >= size
+        pieces += [(len(block) << 3 | last).to_bytes(3, "little"), block]
+    return b"".join(pieces)

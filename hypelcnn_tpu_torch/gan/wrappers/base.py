@@ -15,7 +15,8 @@
 - :class:`GANState`: the step, the networks (an ``nn.ModuleDict`` named as
   the JAX package's params tree, so the weight bridge maps it), every
   optimizer's state and the pools. It restores the JAX package's
-  ``GANState`` too (an orbax checkpoint, converted by the weight bridge).
+  ``GANState`` too (an orbax checkpoint, converted by the weight bridge),
+  and saves as one (:meth:`GANState.checkpoint_tree`).
 - :class:`GANTrainerBase`: ``init_state``, ``train_step`` and the
   translations; :func:`translate_patch` folds ``k x k`` cells into the batch.
 
@@ -47,7 +48,11 @@ import numpy as np
 import torch
 from torch import nn
 
-from hypelcnn_tpu_torch.compat.flax_to_torch import ORBAX_TREE, gan_state_payload
+from hypelcnn_tpu_torch.compat.flax_to_torch import (
+    ORBAX_TREE,
+    gan_state_payload,
+    gan_state_tree,
+)
 from hypelcnn_tpu_torch.models.layers import init_parameters
 from hypelcnn_tpu_torch.parallel.mesh import Mesh, bind_mesh
 from hypelcnn_tpu_torch.train.checkpoint import restore_params
@@ -179,12 +184,17 @@ class GANState:
     opt_paths: Dict[str, List[str]] = field(default_factory=dict)  # each optimizer's networks
 
     def checkpoint(self) -> Dict[str, Any]:
-        """``save_checkpoint`` keyword arguments: the whole state, on the CPU."""
+        """The whole state, on the CPU."""
         return {"step": self.step, "state_dict": _to_cpu(dict(self.nets.state_dict())),
                 "opt_states": _to_cpu({name: {"count": s.count, "m": s.m, "v": s.v}
                                        for name, s in self.opt_states.items()}),
                 "pools": _to_cpu({name: {"buffer": p.buffer, "inputs_buffer": p.inputs_buffer,
                                          "count": p.count} for name, p in self.pools.items()})}
+
+    def checkpoint_tree(self) -> Dict[str, Any]:
+        """:meth:`checkpoint` as the JAX package's ``GANState`` tree, what
+        ``save_checkpoint`` writes."""
+        return gan_state_tree(self.checkpoint(), self.nets, self.opt_paths, list(self.pools))
 
     @torch.no_grad()
     def restore(self, saved: Dict[str, Any]) -> None:

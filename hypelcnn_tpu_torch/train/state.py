@@ -7,9 +7,11 @@ rank's slice of their output channels, and so do their optimizer moments. A
 checkpoint holds full tensors all the same: :meth:`TrainState.checkpoint`
 gathers the shards over the model axis (every rank calls it) and
 :meth:`TrainState.restore` cuts this rank's slice of each, so a checkpoint
-moves between any mesh and one rank. A checkpoint the JAX package wrote
-(read from orbax, at full width too) has its optax state converted here,
-first, by the weight bridge."""
+moves between any mesh and one rank. :meth:`TrainState.checkpoint_tree`
+is the JAX package's ``TrainState`` tree of the same, which the port saves
+as orbax; a checkpoint read from orbax (the JAX package's or the port's, at
+full width too) has its optax state converted here, first, by the weight
+bridge."""
 
 from __future__ import annotations
 
@@ -18,7 +20,11 @@ from typing import Any, Callable, Dict, FrozenSet, Optional
 
 import torch
 
-from hypelcnn_tpu_torch.compat.flax_to_torch import ORBAX_TREE, optimizer_state_dict
+from hypelcnn_tpu_torch.compat.flax_to_torch import (
+    ORBAX_TREE,
+    optimizer_state_dict,
+    train_state_tree,
+)
 from hypelcnn_tpu_torch.parallel.mesh import Mesh
 from hypelcnn_tpu_torch.train.optimizer import Schedule
 
@@ -81,6 +87,12 @@ class TrainState:
                                                     self.mesh.gather_shards)
         return {"step": self.step, "state_dict": _to_cpu(state_dict),
                 "optimizer": _to_cpu(optimizer)}
+
+    def checkpoint_tree(self) -> Dict[str, Any]:
+        """:meth:`checkpoint` as the JAX package's ``TrainState`` tree, what
+        ``save_checkpoint`` writes (every rank calls this under tensor
+        parallelism)."""
+        return train_state_tree(self.checkpoint(), self.module, self.optimizer)
 
     def restore(self, checkpoint: Dict[str, Any]) -> None:
         """Load a :meth:`checkpoint` dict, or one of the JAX package's

@@ -83,7 +83,6 @@ from hypelcnn_tpu_torch.parallel.mesh import (
     shard_module_,
 )
 from hypelcnn_tpu_torch.train.checkpoint import (
-    holds_orbax_step,
     restore_checkpoint,
     save_checkpoint,
 )
@@ -326,22 +325,26 @@ class ClassificationTrainer:
         state = self.init_state(state_dict)
         chief = self.mesh.rank == 0
         resume_step = 0
+        saved_step = None  # the step on disk that this state is, the same on every rank
         if self.log_dir and self.save_checkpoint_steps:
             # every rank reads the chief's file
             restored = restore_checkpoint(self.log_dir)
             if restored is not None and int(restored["step"]) > 0:
                 state.restore(restored)
                 resume_step = min(state.step, num_steps)
+                saved_step = state.step
                 if chief:
                     print(f"Resuming from checkpoint at step {resume_step}")
 
         def save() -> None:
-            if holds_orbax_step(self.log_dir, state.step):
-                return  # the JAX package's checkpoint of this very state, as it resumed
+            nonlocal saved_step
+            if state.step == saved_step:
+                return  # this very state: saved at its cadence, or the one resumed from
             if chief or state.sharded:  # the shards are gathered by every rank
-                payload = state.checkpoint()
+                tree = state.checkpoint_tree()
                 if chief:
-                    save_checkpoint(self.log_dir, **payload)
+                    save_checkpoint(self.log_dir, tree)
+            saved_step = state.step
             self.mesh.barrier()  # no rank reads a checkpoint before it exists
 
         tables = self.training_tables(num_steps, batch_size)

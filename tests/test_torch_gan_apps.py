@@ -20,10 +20,12 @@ from hypelcnn_tpu_torch.apps import (
     gan_infer_image_for_shadow,
     gan_train_for_shadow,
 )
-from hypelcnn_tpu_torch.compat.flax_to_torch import variables_to_state_dict
+from hypelcnn_tpu_torch.compat.flax_to_torch import ORBAX_TREE, variables_to_state_dict
+from hypelcnn_tpu_torch.compat.orbax import is_orbax_checkpoint
 from hypelcnn_tpu_torch.data.loaders.synthetic import SyntheticDataLoader
 from hypelcnn_tpu_torch.train.checkpoint import (
     checkpoint_steps,
+    holds_orbax_step,
     restore_checkpoint,
     restore_params,
     save_params,
@@ -57,8 +59,10 @@ def test_train_cli_writes_the_jax_files_at_its_cadence(tmp_path):
         points = json.loads((log_dir / name).read_text())
         assert sorted(p[0] for p in points) == [2, 4]
     for name in ("ckpt_params_2", "ckpt_params_4", "gan_params"):
-        assert (log_dir / name / "params.pt").is_file()
+        assert is_orbax_checkpoint(str(log_dir / name))
+    assert not list(log_dir.rglob("*.pt"))
     assert checkpoint_steps(str(log_dir)) == [2, 4]  # keep = step // validation_steps
+    assert holds_orbax_step(str(log_dir), 2) and holds_orbax_step(str(log_dir), 4)
     final = restore_params(str(log_dir / "gan_params"))
     assert all(torch.equal(final[k], v) for k, v in
                restore_params(str(log_dir / "ckpt_params_4")).items())
@@ -67,6 +71,16 @@ def test_train_cli_writes_the_jax_files_at_its_cadence(tmp_path):
 
 class _Killed(Exception):
     pass
+
+
+def _assert_same_tree(a, b, path=()):
+    """Two trees ``read_orbax`` gave hold the same arrays, bit for bit."""
+    if isinstance(a, dict):
+        assert sorted(a) == sorted(b), path
+        for key in a:
+            _assert_same_tree(a[key], b[key], path + (key,))
+    else:
+        assert a.dtype == b.dtype and a.tobytes() == b.tobytes(), path
 
 
 def test_killed_and_resumed_run_equals_an_uninterrupted_one(tmp_path, monkeypatch, capsys):
@@ -97,13 +111,13 @@ def test_killed_and_resumed_run_equals_an_uninterrupted_one(tmp_path, monkeypatc
     a, b = restore_checkpoint(str(straight)), restore_checkpoint(str(resumed))
     assert a["step"] == b["step"] == 6
     assert all(torch.equal(b["state_dict"][k], v) for k, v in a["state_dict"].items())
-    for name, opt in a["opt_states"].items():
-        assert b["opt_states"][name]["count"] == opt["count"] == 6
-        assert all(torch.equal(x, y) for x, y in zip(b["opt_states"][name]["m"] +
-                                                     b["opt_states"][name]["v"],
-                                                     opt["m"] + opt["v"]))
-    for name, pool in a["pools"].items():
-        assert torch.equal(b["pools"][name]["buffer"], pool["buffer"])
+    # the whole saved GANState: networks, both optimizers' counts and moments, both pools
+    a, b = a[ORBAX_TREE], b[ORBAX_TREE]
+    assert sorted(a["opt_states"]) == ["discriminators", "generators"]
+    assert sorted(a["pool"]) == ["x2y", "y2x"]
+    for opt in a["opt_states"].values():
+        assert int(opt["count"]) == 6
+    _assert_same_tree(a, b)
     final_a, final_b = (restore_params(str(d / "gan_params")) for d in (straight, resumed))
     assert all(torch.equal(final_b[k], v) for k, v in final_a.items())
 

@@ -136,7 +136,7 @@ def test_full_state_round_trips(tmp_path):
     trainer = get_trainer_dict(CONFIG, 16, MAX_STEPS)["cycle_gan"]
     state = trainer.init_state("cpu", torch.Generator().manual_seed(0))
     _run(trainer, state, 16, steps=3)
-    save_checkpoint(str(tmp_path), **state.checkpoint())
+    save_checkpoint(str(tmp_path), state.checkpoint_tree())
     fresh = trainer.init_state("cpu", torch.Generator().manual_seed(1))
     fresh.restore(restore_checkpoint(str(tmp_path)))
     saved, restored = state.checkpoint(), fresh.checkpoint()

@@ -22,9 +22,10 @@ from hypelcnn_tpu_torch.infer.scene_inference import (
     predict_full_scene,
     predict_targets,
 )
-from hypelcnn_tpu_torch.train.checkpoint import restore_checkpoint, save_checkpoint
+from hypelcnn_tpu_torch.core.registry import get_model_from_name
+from hypelcnn_tpu_torch.train.checkpoint import restore_checkpoint
 from hypelcnn_tpu_torch.utils.tiff_io import imwrite, read_tags
-from torch_parity import init_jax, torch_module
+from torch_parity import init_jax, save_module, torch_module
 from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 SPEC = "synthetic://?h=48&w=64&bands=12&classes=5&seed=3"
@@ -70,7 +71,7 @@ def test_predict_targets_matches_jax(setup):
 
 def test_infer_cli_writes_the_tiffs(setup, tmp_path):
     jax_module, variables, jax_scene, module, _ = setup
-    save_checkpoint(str(tmp_path / "log"), 7, module.state_dict())
+    save_module(tmp_path / "log", 7, module)
     infer_for_classification.main([
         "--loader_name=SyntheticDataLoader", f"--path={SPEC}",
         f"--neighborhood={NEIGHBORHOOD}", "--algorithm_param_path",
@@ -111,12 +112,19 @@ def test_infer_cli_refuses_unported_domains_and_missing_checkpoints(tmp_path):
 
 def test_checkpoint_restores_the_latest_step(tmp_path):
     assert restore_checkpoint(str(tmp_path)) is None
-    save_checkpoint(str(tmp_path), 3, {"w": torch.zeros(2)})
-    save_checkpoint(str(tmp_path), 12, {"w": torch.ones(2)})
+    module = get_model_from_name("HYPELCNNModel").create_module(CLASSES, PARAMS,
+                                                                DATA_SHAPE)
+    save_module(tmp_path, 3, module)
+    with torch.no_grad():
+        next(module.parameters()).fill_(1.0)
+    save_module(tmp_path, 12, module)
     restored = restore_checkpoint(str(tmp_path))
     assert restored["step"] == 12
-    assert torch.equal(restored["state_dict"]["w"], torch.ones(2))
-    assert (tmp_path / "checkpoints" / "12" / "state.pt").is_file()
+    for key, value in module.state_dict().items():
+        assert torch.equal(restored["state_dict"][key], value), key
+    step_dir = tmp_path / "checkpoints" / "12"
+    assert (step_dir / "_CHECKPOINT_METADATA").is_file() and (step_dir / "default").is_dir()
+    assert not list(step_dir.rglob("*.pt"))
 
 
 def test_image_helpers_match_jax(tmp_path):

@@ -123,6 +123,8 @@ def ranks(work, cap_jax_step, cap_sweep_weights):
     tasks = [_train_task(name, *case) for name, case in CASES.items()]
     tasks.append(_train_task("checkpointed", *CASES["hypelcnn_dropout_augment"],
                              log_dir=str(work / "log"), save_checkpoint_steps=STEPS))
+    tasks.append(_train_task("late_follower", *CASES["hypelcnn"], log_dir=str(work / "late"),
+                             save_checkpoint_steps=STEPS // 2, late_follower=True))
     tasks.append(_train_task("cap_from_jax", *CASES["cap"], steps=1,
                              state_dict=cap_jax_step[0]))
     tasks.append(_sweep_task("cap_sweep", SPEC, cap_sweep_weights[0], 16))
@@ -170,6 +172,18 @@ def test_only_the_chief_writes(ranks, work):
     logged = [line for line in (log / "summaries.jsonl").read_text().splitlines()
               if '"tag": "loss"' in line]
     assert len(logged) == STEPS  # one writer: each step's loss once
+
+
+def test_a_rank_that_saves_after_the_chief_wrote_passes_every_barrier(ranks, work):
+    """Whether a rank saves is decided without reading the log dir: a rank
+    that comes to a save after the chief has written that step still meets
+    the chief at its barrier, and the runs go on as one."""
+    first, second = (r["late_follower"] for r in ranks)
+    assert first["barriers"] == second["barriers"] == 2  # the saves at STEPS / 2 and STEPS
+    assert first["losses"] == second["losses"]
+    assert first["test_oa"] == second["test_oa"] and first["val_oa"] == second["val_oa"]
+    assert sorted(p.name for p in (work / "late" / "checkpoints").iterdir()) == [
+        str(STEPS // 2), str(STEPS)]
 
 
 def test_two_rank_checkpoint_resumes_in_one_rank(ranks, work):

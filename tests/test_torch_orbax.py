@@ -535,9 +535,10 @@ def test_a_jax_run_resumes_in_the_port(optimizer, tmp_path_factory, tmp_path):
     for key, theirs in jax_final.items():
         np.testing.assert_allclose(final[key].numpy(), theirs.numpy(), rtol=1e-3, atol=2e-3,
                                    err_msg=key)
-    # the port's own checkpoint beside JAX's, which it leaves as it was
+    # the port's own orbax checkpoint beside JAX's, which it leaves as it was
     assert checkpoint_steps(str(log_dir)) == [SAVED, STEPS]
-    assert holds_orbax_step(str(log_dir), SAVED) and not holds_orbax_step(str(log_dir), STEPS)
+    assert holds_orbax_step(str(log_dir), SAVED) and holds_orbax_step(str(log_dir), STEPS)
+    assert (log_dir / "checkpoints" / str(SAVED) / "default" / "ocdbt.process_0").is_dir()
 
 
 def test_resuming_at_the_last_step_leaves_the_jax_checkpoint(tmp_path_factory, tmp_path):
@@ -546,8 +547,8 @@ def test_resuming_at_the_last_step_leaves_the_jax_checkpoint(tmp_path_factory, t
                                         save_checkpoint_steps=SAVED), SAVED)
     assert result.steps_run == 0 and losses == []
     assert checkpoint_steps(str(log_dir)) == [SAVED] and holds_orbax_step(str(log_dir), SAVED)
-    with pytest.raises(FileExistsError, match="orbax checkpoint of the JAX package"):
-        save_checkpoint(str(log_dir), SAVED, result.final_state.module.state_dict())
+    with pytest.raises(FileExistsError, match="written once"):
+        save_checkpoint(str(log_dir), result.final_state.checkpoint_tree())
 
 
 def test_an_unreadable_jax_checkpoint_is_refused_not_skipped(tmp_path_factory, tmp_path):
@@ -563,9 +564,15 @@ def test_pruning_counts_jax_and_port_steps_together(tmp_path):
         jax_save_checkpoint(str(tmp_path), state.replace(step=jnp.asarray(step, jnp.int32)))
     payload = restore_checkpoint(str(tmp_path))
     assert payload["step"] == 3
-    save_checkpoint(str(tmp_path), 4, payload["state_dict"], max_to_keep=3)
+    port_state = _port_trainer(PARAMS).init_state()
+    port_state.restore(payload)
+    port_state.step = 4
+    save_checkpoint(str(tmp_path), port_state.checkpoint_tree(), max_to_keep=3)
     assert checkpoint_steps(str(tmp_path)) == [2, 3, 4]
-    assert [holds_orbax_step(str(tmp_path), s) for s in (2, 3, 4)] == [True, True, False]
+    assert [holds_orbax_step(str(tmp_path), s) for s in (2, 3, 4)] == [True, True, True]
+    # JAX's steps hold its process database, the port's one store of its own
+    assert [(tmp_path / "checkpoints" / str(s) / "default" / "ocdbt.process_0").is_dir()
+            for s in (2, 3, 4)] == [True, True, False]
     assert restore_checkpoint(str(tmp_path))["step"] == 4
 
 

@@ -127,11 +127,14 @@ def test_the_gan_train_cli_resumes_a_jax_log_dir(tmp_path, capsys):
     assert "Resuming GAN training from checkpoint at step 4" in out and "step 6:" in out
     assert "step 2:" not in out and "step 4:" not in out
     assert checkpoint_steps(str(log_dir)) == [2, 4, 6]
-    assert [holds_orbax_step(str(log_dir), s) for s in (2, 4, 6)] == [True, True, False]
+    assert [holds_orbax_step(str(log_dir), s) for s in (2, 4, 6)] == [True, True, True]
     assert restore_checkpoint(str(log_dir))["step"] == 6
-    # gan_params now holds the port's snapshot in place of JAX's
-    assert (log_dir / "gan_params" / "params.pt").is_file()
-    assert not orbax.is_orbax_checkpoint(str(log_dir / "gan_params"))
+    # gan_params now holds the port's snapshot (orbax, step 6's networks) in place of JAX's
+    assert orbax.is_orbax_checkpoint(str(log_dir / "gan_params"))
+    assert not list(log_dir.rglob("*.pt"))
+    final = restore_params(str(log_dir / "gan_params"))
+    assert all(torch.equal(final[k], v) for k, v in
+               restore_checkpoint(str(log_dir))["state_dict"].items())
     assert orbax.is_orbax_checkpoint(str(log_dir / "ckpt_params_4"))
     restore_params(str(log_dir / "ckpt_params_4"))
 

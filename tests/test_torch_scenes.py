@@ -43,10 +43,9 @@ from hypelcnn_tpu_torch.data.scene import DualResScene, MultiScene, Scene
 from hypelcnn_tpu_torch.infer.scene_inference import predict_full_scene, predict_targets
 from hypelcnn_tpu_torch.models.layers import init_parameters
 from hypelcnn_tpu_torch.ops.window_gather import gather_from_multi, gather_patches_dual
-from hypelcnn_tpu_torch.train.checkpoint import save_checkpoint
 from hypelcnn_tpu_torch.train.trainer import ClassificationTrainer
 from hypelcnn_tpu_torch.utils.tiff_io import imread
-from torch_parity import numpy_tree
+from torch_parity import numpy_tree, save_module
 from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 CLASSES = 4
@@ -306,7 +305,7 @@ def test_grss2018_layout_and_gt_domain(grss2018_root, tmp_path):
         with Image.open(tmp_path / "jax" / name) as theirs:
             _equal(imread(str(tmp_path / "gt" / name)), np.asarray(theirs))
     module = get_model_from_name("HYPELCNNModel").create_module(20, {"filter_count": 32}, [3, 3, 3])
-    save_checkpoint(str(tmp_path / "log"), 1, module.state_dict())
+    save_module(tmp_path / "log", 1, module)
     (tmp_path / "params.json").write_text(json.dumps({"filter_count": 32}))
     with pytest.raises(NotImplementedError, match="JAX package cannot sweep"):
         infer_for_classification.main(common + [

@@ -58,10 +58,18 @@ from hypelcnn_tpu.core.registry import get_importer_from_name as jax_get_importe
 from hypelcnn_tpu.models.hypelcnn import HYPELCNNModel as JaxHYPELCNNModel
 from hypelcnn_tpu.parallel.mesh import DATA_AXIS, MODEL_AXIS
 from hypelcnn_tpu.parallel.mesh import shard_params_for_tp as jax_shard_params_for_tp
+from hypelcnn_tpu.train.checkpoint import restore_checkpoint as jax_restore_checkpoint
+from hypelcnn_tpu.train.optimizer import build_optimizer as jax_build_optimizer
+from hypelcnn_tpu.train.state import TrainState as JaxTrainState
 from hypelcnn_tpu.train.trainer import ClassificationTrainer as JaxClassificationTrainer
-from hypelcnn_tpu_torch.compat.flax_to_torch import variables_to_state_dict
+from hypelcnn_tpu_torch.compat.flax_to_torch import ORBAX_TREE, variables_to_state_dict
+from hypelcnn_tpu_torch.compat.orbax import read_orbax
 from hypelcnn_tpu_torch.parallel.mesh import Mesh, create_mesh, shard_module_, tp_sharded_keys
-from hypelcnn_tpu_torch.train.checkpoint import checkpoint_steps, restore_checkpoint
+from hypelcnn_tpu_torch.train.checkpoint import (
+    checkpoint_steps,
+    holds_orbax_step,
+    restore_checkpoint,
+)
 from torch_mp_worker import run_gan, run_sweep, run_train
 from torch_parity import init_jax, numpy_tree, torch_module
 from torch_ranks import run_ranks
@@ -342,30 +350,58 @@ def test_checkpoint_moves_between_meshes(ranks, one_rank, work):
 
     tp_dir, one_dir = work / "tp_log", work / "one_log"
     assert checkpoint_steps(str(tp_dir)) == [STEPS, 2 * STEPS]
-    at_steps = torch.load(tp_dir / "checkpoints" / str(STEPS) / "state.pt", weights_only=True)
-    one_at_steps = torch.load(one_dir / "checkpoints" / str(STEPS) / "state.pt",
-                              weights_only=True)
-    assert at_steps["step"] == STEPS
+    resumed_dir, one_copy = work / "tp_to_one", work / "one_at_steps"
+    for source, copy in ((tp_dir, resumed_dir), (one_dir, one_copy)):
+        shutil.copytree(source, copy)
+        shutil.rmtree(copy / "checkpoints" / str(2 * STEPS))
+    at_steps = restore_checkpoint(str(resumed_dir))
+    one_at_steps = restore_checkpoint(str(one_copy))
+    assert at_steps["step"] == STEPS and holds_orbax_step(str(tp_dir), STEPS)
     _assert_states_close(at_steps["state_dict"], one_at_steps["state_dict"], STEPS, "saved")
     sharded = set(chief["tp_checkpointed"]["sharded"])
     names = list(one_at_steps["state_dict"])
     params = [n for n in names if n.rpartition(".")[2] not in ("mean", "var")]
-    moments = at_steps["optimizer"]["state"]
-    assert len(moments) == len(params)
-    for index, name in enumerate(params):
-        theirs = one_at_steps["optimizer"]["state"][index]
-        for leaf in ("exp_avg", "exp_avg_sq"):
-            assert moments[index][leaf].shape == one_at_steps["state_dict"][name].shape
-            torch.testing.assert_close(moments[index][leaf], theirs[leaf], rtol=0, atol=1e-6)
+    for leaf in ("mu", "nu"):  # Adam's moments, saved as JAX's at full width
+        moments, theirs = (variables_to_state_dict(saved[ORBAX_TREE]["opt_state"][0][leaf])
+                           for saved in (at_steps, one_at_steps))
+        assert sorted(moments) == sorted(params)
+        for name in params:
+            assert moments[name].shape == one_at_steps["state_dict"][name].shape
+            torch.testing.assert_close(moments[name], theirs[name], rtol=0, atol=1e-6)
     assert any(name in sharded for name in params)
 
-    resumed_dir = work / "tp_to_one"
-    shutil.copytree(tp_dir, resumed_dir)
-    shutil.rmtree(resumed_dir / "checkpoints" / str(2 * STEPS))
     resumed = one_rank(_train_task("tp_to_one", *case, steps=2 * STEPS,
                                    log_dir=str(resumed_dir), save_checkpoint_steps=STEPS))
     _assert_resumed(resumed, straight, "TP to one rank")
     assert restore_checkpoint(str(resumed_dir))["step"] == 2 * STEPS
+
+
+def test_jax_restores_a_model_axis_checkpoint_at_full_width(ranks, work):
+    """The (1, 2) chief's orbax step, written after the shards were
+    gathered, is what a one-device JAX run writes: the JAX package's restore,
+    with the template its trainer builds, reads every leaf at full width, bit
+    for bit."""
+    model, params, _ = CASES["hypelcnn_dropout_augment"]
+    params = {**JaxHYPELCNNModel().default_params(), **params, "learning_rate": LEARNING_RATE}
+    _, flax_params, batch_stats = init_jax(model, CLASSES, params, (3, 3, CHANNELS))
+    tx, _ = jax_build_optimizer(params)
+    template = JaxTrainState.create(*(jax.tree_util.tree_map(jax.numpy.asarray, tree)
+                                      for tree in (flax_params, batch_stats)), tx)
+    tp_dir = work / "tp_log"
+    assert ranks["1x2"][0]["tp_resumed"]["step"] == 2 * STEPS
+    restored = jax_restore_checkpoint(str(tp_dir), template)
+    assert int(restored.step) == 2 * STEPS
+    tree = read_orbax(str(tp_dir / "checkpoints" / str(2 * STEPS)))
+    leaves = jax.tree_util.tree_leaves_with_path(restored)
+    assert len(leaves) == len(jax.tree_util.tree_leaves(template))
+    for path, value in leaves:
+        ours = tree
+        for entry in path:  # a dict key, a dataclass field or a tuple index
+            attr = next(a for a in ("key", "name", "idx") if hasattr(entry, a))
+            ours = ours[getattr(entry, attr)]
+        theirs = np.asarray(value)
+        assert ours.shape == theirs.shape and ours.dtype == theirs.dtype, path
+        assert ours.tobytes() == theirs.tobytes(), path
 
 
 def test_a_jax_checkpoint_resumes_on_a_model_axis(ranks, one_rank, jax_log):

@@ -38,9 +38,9 @@ from hypelcnn_tpu_torch.data.augmentation import AugmentationInfo
 from hypelcnn_tpu_torch.data.loaders.synthetic import SyntheticDataLoader
 from hypelcnn_tpu_torch.infer.scene_inference import predict_full_scene
 from hypelcnn_tpu_torch.models.hypelcnn import HYPELCNNModel
-from hypelcnn_tpu_torch.train.checkpoint import checkpoint_steps, save_checkpoint
+from hypelcnn_tpu_torch.train.checkpoint import checkpoint_steps
 from hypelcnn_tpu_torch.train.trainer import ClassificationTrainer
-from torch_parity import init_jax, torch_module
+from torch_parity import init_jax, save_module, torch_module
 from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 SPEC = "synthetic://?h=48&w=64&bands=12&classes=5&seed=3"
@@ -232,7 +232,7 @@ def test_infer_cli_sample_and_gt_match_jax(tmp_path):
     jax_save_checkpoint(str(tmp_path / "jax_log"), state.replace(step=jax.numpy.asarray(1)))
     module = torch_module("HYPELCNNModel", flax_params, batch_stats, CLASSES,
                           {"filter_count": 32}, (3, 3, 13))
-    save_checkpoint(str(tmp_path / "log"), 1, module.state_dict())
+    save_module(tmp_path / "log", 1, module)
 
     common = ["--loader_name=SyntheticDataLoader", f"--path={SPEC}", "--neighborhood=1",
               f"--algorithm_param_path={params}"]

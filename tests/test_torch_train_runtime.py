@@ -156,8 +156,19 @@ def test_dropout_draws_from_its_generator_only():
     assert layer.eval()(x, None) is x
 
 
+class _Dense(torch.nn.Module):
+    """One dense layer under its flax name, so that its state has a JAX tree."""
+
+    def __init__(self):
+        super().__init__()
+        self.Dense_0 = torch.nn.Linear(3, 2)
+
+    def forward(self, x):
+        return self.Dense_0(x)
+
+
 def _state(params):
-    module = torch.nn.Linear(3, 2)
+    module = _Dense()
     optimizer, schedule = build_optimizer(params, module.parameters())
     return TrainState(step=0, module=module, optimizer=optimizer, schedule=schedule)
 
@@ -170,7 +181,7 @@ def test_checkpoint_restores_optimizer_and_schedule_across_the_decay(tmp_path):
         state.module(torch.ones(4, 3)).sum().backward()
         state.apply_gradients()
     assert state.step == 350
-    save_checkpoint(str(tmp_path), **state.checkpoint())
+    save_checkpoint(str(tmp_path), state.checkpoint_tree())
 
     resumed = _state(params)
     resumed.restore(restore_checkpoint(str(tmp_path)))
@@ -189,9 +200,14 @@ def test_checkpoint_restores_optimizer_and_schedule_across_the_decay(tmp_path):
 
 
 def test_checkpoints_keep_the_newest_twenty(tmp_path):
+    state = _state(dict(SCHEDULE, optimizer="AdamOptimizer"))
     for step in range(1, MAX_TO_KEEP + 3):
-        save_checkpoint(str(tmp_path), step, {"w": torch.full((2,), float(step))})
+        state.step = step
+        with torch.no_grad():
+            state.module.Dense_0.bias.fill_(float(step))
+        save_checkpoint(str(tmp_path), state.checkpoint_tree())
     assert checkpoint_steps(str(tmp_path)) == list(range(3, MAX_TO_KEEP + 3))
     latest = restore_checkpoint(str(tmp_path))
     assert latest["step"] == MAX_TO_KEEP + 2
-    assert torch.equal(latest["state_dict"]["w"], torch.full((2,), float(MAX_TO_KEEP + 2)))
+    assert torch.equal(latest["state_dict"]["Dense_0.bias"],
+                       torch.full((2,), float(MAX_TO_KEEP + 2)))

@@ -21,7 +21,10 @@ the tasks, so every rank makes the same subgroups).
   step. Result: the losses, test and validation OA, the final
   ``state_dict`` at full width (gathered over the model axis) and this
   rank's own replicated tensors, the sharded keys, the step, this
-  process's id.
+  process's id and how many barriers it passed. With ``late_follower``,
+  every rank but the chief waits after each step it saves at until the
+  chief's step directory is there, so it comes to the save after the
+  chief has written.
 - ``sweep``: ``predict_full_scene`` on the mesh, the module's wide kernels
   sharded over its model axis. Result: the class map.
 - ``gan``: a GAN trainer of the registry on the mesh, ``train_step`` on the
@@ -41,6 +44,7 @@ import json
 import os
 import random
 import sys
+import time
 
 import numpy as np
 import torch
@@ -71,6 +75,23 @@ def _load(path):
     return None if path is None else torch.load(path, weights_only=True)
 
 
+def _counted(barrier, passed):
+    barrier()
+    passed.append(1)
+
+
+def _late_step(train_step, task, state, tables, step):
+    """``train_step``; at a step the trainer saves, then wait for the chief's checkpoint."""
+    loss = train_step(state, tables, step)
+    if (step + 1) % task["save_checkpoint_steps"] == 0:
+        step_dir = os.path.join(task["log_dir"], "checkpoints", str(step + 1))
+        deadline = time.monotonic() + 60
+        while not os.path.isdir(step_dir):
+            assert time.monotonic() < deadline, f"no checkpoint at {step_dir}"
+            time.sleep(0.01)
+    return loss
+
+
 def run_train(task: dict, mesh) -> dict:
     np.random.seed(task.get("seed", 0))
     data = get_importer_from_name("GeneratorImporter").read_data_set(
@@ -85,13 +106,20 @@ def run_train(task: dict, mesh) -> dict:
         augmentation_info=AUGMENTATION if task.get("augment") else None,
         log_dir=task.get("log_dir"), save_checkpoint_steps=task.get("save_checkpoint_steps"),
         test_cadence=task.get("test_cadence", 100))
+    if task.get("late_follower") and rank() != 0:
+        trainer.train_step = functools.partial(_late_step, trainer.train_step, task)
+    barriers = []
+    mesh.barrier = functools.partial(_counted, type(mesh).barrier.__get__(mesh), barriers)
     losses = []
-    result = trainer.fit(task["steps"], task["batch"], log_every=1,
-                         progress_callback=lambda step, loss: losses.append(loss),
-                         state_dict=_load(task.get("state_dict")))
+    try:
+        result = trainer.fit(task["steps"], task["batch"], log_every=1,
+                             progress_callback=lambda step, loss: losses.append(loss),
+                             state_dict=_load(task.get("state_dict")))
+    finally:
+        del mesh.barrier
     state = result.final_state
     return {"losses": losses, "test_oa": result.test_accuracy,
-            "val_oa": result.validation_accuracy, "step": state.step,
+            "val_oa": result.validation_accuracy, "step": state.step, "barriers": len(barriers),
             "state": state.checkpoint()["state_dict"],
             "own": {k: v.clone() for k, v in state.module.state_dict().items()
                     if k not in state.sharded},

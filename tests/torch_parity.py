@@ -17,6 +17,9 @@ import numpy as np
 from hypelcnn_tpu.core.registry import get_model_from_name as jax_get_model
 from hypelcnn_tpu_torch.compat.flax_to_torch import load_flax_variables
 from hypelcnn_tpu_torch.core.registry import get_model_from_name
+from hypelcnn_tpu_torch.train.checkpoint import save_checkpoint
+from hypelcnn_tpu_torch.train.optimizer import build_optimizer
+from hypelcnn_tpu_torch.train.state import TrainState
 
 
 def numpy_tree(tree):
@@ -63,3 +66,13 @@ def torch_module(model_name: str, flax_params, batch_stats, class_count: int, pa
     module = model.create_module(class_count, {**model.default_params(), **params}, data_shape)
     load_flax_variables(module, flax_params, batch_stats)
     return module.eval()
+
+
+def save_module(log_dir, step: int, module, model_name: str = "HYPELCNNModel") -> str:
+    """Save ``module`` as the training state at ``step`` of a run with the
+    family's default Adam, whose moments are not made yet (zero, as optax
+    starts them): an orbax step the port and the JAX package both read."""
+    optimizer, schedule = build_optimizer(get_model_from_name(model_name).default_params(),
+                                          module.parameters())
+    state = TrainState(step=step, module=module, optimizer=optimizer, schedule=schedule)
+    return save_checkpoint(str(log_dir), state.checkpoint_tree())
