@@ -23,15 +23,18 @@ model ranks of one data index compute the same pixels together.
 from __future__ import annotations
 
 import contextlib
+import itertools
 from typing import Optional
 
 import numpy as np
 import torch
 
+from hypelcnn_tpu_torch.core import trace
 from hypelcnn_tpu_torch.ops.window_gather import gather_patches
 from hypelcnn_tpu_torch.parallel.mesh import Mesh, bound_mesh
 
 INVALID_TARGET_VALUE = 255
+_SWEEPS = itertools.count()  # the sweep's call number, the id of its spans
 
 
 def predict_targets(module, scene, targets_xy: np.ndarray, device,
@@ -73,33 +76,37 @@ def predict_full_scene(module, scene, batch_rows: int = 16, device="cuda",
     plain reference on the same device. ``mesh`` splits each band's pixels
     over its data axis; every rank returns the whole map.
     """
-    device = torch.device(device)
-    height, width = scene.get_scene_shape()
-    k = 2 * scene.neighborhood + 1
-    scene_dev = scene.device_scene(device)
-    ranks = mesh if mesh is not None else Mesh()
+    call = next(_SWEEPS)
+    with trace.span("sweep.setup", call):
+        device = torch.device(device)
+        height, width = scene.get_scene_shape()
+        k = 2 * scene.neighborhood + 1
+        scene_dev = scene.device_scene(device)
+        ranks = mesh if mesh is not None else Mesh()
 
-    rows = torch.arange(batch_rows, device=device, dtype=torch.int32)
-    cols = torch.arange(width, device=device, dtype=torch.int32)
-    band = torch.stack([cols.repeat(batch_rows), rows.repeat_interleave(width)], dim=1)
-    share = ranks.split(band.shape[0])
-    band = band[share]
-    y_step = torch.tensor([0, 1], dtype=torch.int32, device=device)
-    # a rank writes its pixels of a zero-filled map, summed over the ranks at the end
-    result = torch.zeros((max(height, batch_rows), width), dtype=torch.int32, device=device)
-    n_bands = (height + batch_rows - 1) // batch_rows
+        rows = torch.arange(batch_rows, device=device, dtype=torch.int32)
+        cols = torch.arange(width, device=device, dtype=torch.int32)
+        band = torch.stack([cols.repeat(batch_rows), rows.repeat_interleave(width)], dim=1)
+        share = ranks.split(band.shape[0])
+        band = band[share]
+        y_step = torch.tensor([0, 1], dtype=torch.int32, device=device)
+        # a rank writes its pixels of a zero-filled map, summed over the ranks at the end
+        result = torch.zeros((max(height, batch_rows), width), dtype=torch.int32, device=device)
+        n_bands = (height + batch_rows - 1) // batch_rows
+        module.eval()
 
-    module.eval()
     with torch.inference_mode(), bound_mesh(module, mesh) if mesh is not None \
             else contextlib.nullcontext():
         for index in range(n_bands):
-            rs = min(index * batch_rows, height - batch_rows) if height >= batch_rows else 0
-            coords = band.add(y_step, alpha=rs)
-            preds = torch.argmax(module(gather(scene_dev, coords, k)).y_conv, dim=1)
-            block = result[rs:rs + batch_rows]
-            block.zero_()  # the last band's pixels may have had another owner before
-            block.view(-1)[share] = preds.to(torch.int32)
-    return ranks.all_reduce_(result)[:height].to(torch.uint8).cpu().numpy()
+            with trace.span("sweep.band", call, index):
+                rs = min(index * batch_rows, height - batch_rows) if height >= batch_rows else 0
+                coords = band.add(y_step, alpha=rs)
+                preds = torch.argmax(module(gather(scene_dev, coords, k)).y_conv, dim=1)
+                block = result[rs:rs + batch_rows]
+                block.zero_()  # the last band's pixels may have had another owner before
+                block.view(-1)[share] = preds.to(torch.int32)
+    with trace.span("sweep.map", call):
+        return ranks.all_reduce_(result)[:height].to(torch.uint8).cpu().numpy()
 
 
 def predict_full_scene_scan(module, scene, batch_rows: int = 16, device="cuda",

@@ -64,6 +64,7 @@ import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint as recompute_in_backward
 
+from hypelcnn_tpu_torch.core import trace
 from hypelcnn_tpu_torch.core.rng import DEFAULT_SEED, RngPool
 from hypelcnn_tpu_torch.data.augmentation import (
     AugmentationInfo,
@@ -220,40 +221,46 @@ class ClassificationTrainer:
     def train_step(self, state: TrainState, tables: TrainingTables, step: int) -> torch.Tensor:
         """One optimizer step on the batch of row ``step``; returns the loss
         (the global batch's mean), on the device, without reading it."""
-        idx = tables.indices[step]
-        total = idx.shape[0]
-        rows = self.mesh.rows(total)
-        idx = idx[rows]
-        coords = tables.coords.index_select(0, idx)
-        label_ids = tables.labels.index_select(0, idx)
-        source = self.sources["training"]
-        patches = self._gather(source, source.device_arrays(self.device), idx, coords, "member",
-                               step, rows, total)
-        draws = draw_augmentations(self.augmentation_info, (total, *patches.shape[1:]),
-                                   self.rng_pool.generator("augment", step, self.device),
-                                   patches.device, patches.dtype)
-        patches = augment_batch(patches, self.augmentation_info, draws=select_rows(draws, rows))
-        labels = (label_ids.unsqueeze(1) == tables.class_ids).to(torch.float32)
+        with trace.span("train_step.input", step):
+            idx = tables.indices[step]
+            total = idx.shape[0]
+            rows = self.mesh.rows(total)
+            idx = idx[rows]
+            coords = tables.coords.index_select(0, idx)
+            label_ids = tables.labels.index_select(0, idx)
+            source = self.sources["training"]
+            patches = self._gather(source, source.device_arrays(self.device), idx, coords,
+                                   "member", step, rows, total)
+            draws = draw_augmentations(self.augmentation_info, (total, *patches.shape[1:]),
+                                       self.rng_pool.generator("augment", step, self.device),
+                                       patches.device, patches.dtype)
+            patches = augment_batch(patches, self.augmentation_info,
+                                    draws=select_rows(draws, rows))
+            labels = (label_ids.unsqueeze(1) == tables.class_ids).to(torch.float32)
 
-        def forward():
-            # the generator is seeded anew, so a recomputation draws the same masks
-            return state.module(patches, labels=labels, dropout_generator=self.rng_pool.generator(
-                "dropout", step, self.device))
+        with trace.span("train_step.forward", step):
+            def forward():
+                # the generator is seeded anew, so a recomputation draws the same masks
+                return state.module(patches, labels=labels,
+                                    dropout_generator=self.rng_pool.generator(
+                                        "dropout", step, self.device))
 
-        if self.remat:
-            out = recompute_in_backward(forward, use_reentrant=False, context_fn=lambda: (
-                contextlib.nullcontext(), running_stats_frozen(state.module)))
-        else:
-            out = forward()
-        loss = torch.mean(self.model.loss(out, labels))
-        state.optimizer.zero_grad(set_to_none=True)
-        loss.backward()
-        params = [p for p in state.module.parameters() if p.grad is not None]
-        *grads, loss = self.mesh.mean([p.grad for p in params] + [loss.detach()])
-        for param, grad in zip(params, grads):
-            param.grad = grad
-        state.apply_gradients()
-        return loss.detach()
+            if self.remat:
+                out = recompute_in_backward(forward, use_reentrant=False, context_fn=lambda: (
+                    contextlib.nullcontext(), running_stats_frozen(state.module)))
+            else:
+                out = forward()
+            loss = torch.mean(self.model.loss(out, labels))
+        with trace.span("train_step.backward", step):
+            state.optimizer.zero_grad(set_to_none=True)
+            loss.backward()
+            params = [p for p in state.module.parameters() if p.grad is not None]
+            *grads, loss = self.mesh.mean([p.grad for p in params] + [loss.detach()])
+            for param, grad in zip(params, grads):
+                param.grad = grad
+        with trace.span("train_step.optimizer", step):
+            state.apply_gradients()
+            return loss.detach()
 
     # ---- evaluation drains ----
 
