@@ -21,12 +21,14 @@ without them. Phases, one JSON line each:
    classes), random weights from a seed. The gather's launch count over that
    run must equal the band count; the class map must equal the sweep's with
    the plain gather; float32 logits on the card must agree with the CPU's on
-   a small batch. Then the sweep is timed.
+   a small batch; some convolution must have taken the GEMM (``conv2d``'s
+   two counts are printed). Then the sweep is timed.
 5. ``train``: ``train_for_classification --device=cuda`` at the same width,
    published batch 48 and dropout 0.7, with rotation, reflection and spectral
    augmentation, 300 steps with checkpoints every 200 into a fresh log dir.
    The gather's launch count must equal the steps plus the eval batches;
-   losses finite and falling, test OA above 0.5. Then the steady-state step
+   losses finite and falling, test OA above 0.5; some convolution must
+   have taken the GEMM. Then the steady-state step
    time (median of 3 runs of 25 steps after 20 warm-up steps), peak device
    memory and the step's float32 bound.
 6. ``train_vs_cpu``: 3 steps from the same weights on the same batches,
@@ -49,7 +51,8 @@ published JSON, on the same scene (``family_concnn``: k = 5, batch 10;
 
 - the train CLI for its 300 steps with the ``train`` phase's augmentation; the
   gather's launches must equal the steps plus the eval batches, counted by
-  batch size; losses finite and falling; test OA above 0.2;
+  batch size; losses finite and falling; test OA above 0.2; ``conv2d``'s
+  counts of the CLI runs printed, and for DUALCNN some GEMM in each;
 - 3 steps card against CPU from the same weights, dropout and augmentation
   off; step 1 within 1e-4 relative;
 - the infer CLI with ``--domain all`` (one launch a band; the class map
@@ -325,7 +328,13 @@ from hypelcnn_tpu_torch.infer.scene_inference import (
 from hypelcnn_tpu_torch.kernels import build
 from hypelcnn_tpu_torch.kernels.window_gather import reset_launches, window_gather_cuda
 from hypelcnn_tpu_torch.models.hypelcnn import HYPELCNNModel
-from hypelcnn_tpu_torch.models.layers import SlimBatchNorm, fuse_variables, init_parameters
+from hypelcnn_tpu_torch.models.layers import (
+    SlimBatchNorm,
+    conv2d,
+    fuse_variables,
+    init_parameters,
+    reset_conv_counts,
+)
 from hypelcnn_tpu_torch.ops.window_gather import gather_patches_dual, gather_patches_torch
 from hypelcnn_tpu_torch.parallel.distributed import finalize_distributed, join_rank
 from hypelcnn_tpu_torch.parallel.distributed import rank as dist_rank
@@ -529,6 +538,16 @@ def _note_main_path() -> dict:
     return by_batch
 
 
+def _conv_routes(model: str, what: str) -> dict:
+    """The convolutions that took the GEMM and cuDNN since the last
+    ``reset_conv_counts``; HYPELCNN's and DUALCNN's 3x3 levels (and
+    DUALCNN's LiDAR 5x5) cover their windows, so their runs must take the GEMM."""
+    routes = {"gemm": conv2d.gemm, "cudnn": conv2d.cudnn}
+    if model in ("HYPELCNNModel", "DUALCNNModel"):
+        check(routes["gemm"] > 0, f"{model} {what}: no convolution took the GEMM: {routes}")
+    return routes
+
+
 def _augmentation() -> AugmentationInfo:
     """The train CLI's augmentation in the ``train`` and family phases."""
     return AugmentationInfo(perform_rotation_augmentation=True,
@@ -680,6 +699,7 @@ def phase_infer_all(device, work: Path):
 
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
+    reset_conv_counts()
     start = time.perf_counter()
     infer_for_classification.main([
         "--loader_name=SyntheticDataLoader", f"--path={SPEC}", f"--neighborhood={NEIGHBORHOOD}",
@@ -687,6 +707,7 @@ def phase_infer_all(device, work: Path):
         f"--output_path={out_dir}", "--domain=all", "--device=cuda"])
     cli_seconds = time.perf_counter() - start
     launches = window_gather_cuda.launches
+    conv_routes = _conv_routes("HYPELCNNModel", "sweep")
     _note_main_path()
     peak_bytes = torch.cuda.max_memory_allocated()
     check(launches == n_bands,
@@ -730,7 +751,8 @@ def phase_infer_all(device, work: Path):
     sweep_flop = 2 * macs * HEIGHT * WIDTH
     emit({"phase": "infer_all", "scene": [HEIGHT, WIDTH, data_shape[2]], "patch": data_shape[0],
           "bands": n_bands, "windows": HEIGHT * WIDTH, "gather_launches": launches,
-          "cli_seconds": cli_seconds, "sweep_seconds": seconds, "sweep_runs": sweep,
+          "conv_routes": conv_routes, "cli_seconds": cli_seconds, "sweep_seconds": seconds,
+          "sweep_runs": sweep,
           "pixels_per_second": HEIGHT * WIDTH / seconds,
           "plain_gather_sweep_seconds": statistics.median(plain_sweep),
           "flop_per_pixel": 2 * macs, "sweep_bound_seconds": sweep_flop / FP32_FLOP_PER_S,
@@ -832,10 +854,12 @@ def phase_train(device, work: Path, data, macs: int) -> dict:
 
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
+    reset_conv_counts()
     start = time.perf_counter()
     result, _ = _run_train_cli(_train_args(log_root, TRAIN_STEPS))
     cli_seconds = time.perf_counter() - start
     launches = window_gather_cuda.launches
+    conv_routes = _conv_routes("HYPELCNNModel", "training")
     by_batch = _note_main_path()
     cli_peak_bytes = torch.cuda.max_memory_allocated()
     (log_dir,) = [p for p in log_root.iterdir() if p.is_dir()]
@@ -863,6 +887,7 @@ def phase_train(device, work: Path, data, macs: int) -> dict:
     checkpoint = _timed_save(state, work / "train_saved")
     step_flop = 3 * 2 * macs * TRAIN_BATCH  # forward + backward ~ 3 forwards
     emit({"phase": "train", "steps": TRAIN_STEPS, "batch": TRAIN_BATCH, "targets": counts, **gather,
+          "conv_routes": conv_routes,
           "gather_launches_by_batch": {str(b): n for b, n in sorted(by_batch.items())},
           "logged_losses": losses, "test_oa": result.test_accuracy,
           "checkpoints": saved, "cli_seconds": cli_seconds,
@@ -1025,9 +1050,11 @@ def phase_family(device, work: Path, family: Family) -> dict:
     # train CLI
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
+    reset_conv_counts()
     start = time.perf_counter()
     result, _ = _run_train_cli(_train_args(log_root, family.steps, family))
     cli_seconds = time.perf_counter() - start
+    conv_routes = {"train": _conv_routes(family.model, "training")}
     by_batch = _note_main_path()
     launches = window_gather_cuda.launches
     cli_peak_bytes = torch.cuda.max_memory_allocated()
@@ -1050,6 +1077,7 @@ def phase_family(device, work: Path, family: Family) -> dict:
     for domain in ("all", "sample"):
         out_dir = work / f"{family.phase}_{domain}"
         reset_launches()
+        reset_conv_counts()
         start = time.perf_counter()
         infer_for_classification.main([
             "--loader_name=SyntheticDataLoader", f"--path={SPEC}",
@@ -1058,6 +1086,7 @@ def phase_family(device, work: Path, family: Family) -> dict:
             f"--output_path={out_dir}", f"--domain={domain}", "--device=cuda"])
         infer_seconds[domain] = time.perf_counter() - start
         infer_launches[domain] = window_gather_cuda.launches
+        conv_routes[domain] = _conv_routes(family.model, f"--domain={domain}")
         by_batch_infer = _note_main_path()
         if domain == "all":
             sweep_launches = by_batch_infer
@@ -1118,6 +1147,7 @@ def phase_family(device, work: Path, family: Family) -> dict:
     record = {"phase": family.phase, "model": family.model,
               "config": str(family.params_path.relative_to(ROOT)), "patch": k,
               "batch": family.batch, "steps": family.steps, "targets": counts, **gather,
+              "conv_routes": conv_routes,
               "gather_launches_by_batch": {str(b): n for b, n in sorted(by_batch.items())},
               "logged_losses": losses, "test_oa": result.test_accuracy,
               "cli_seconds": cli_seconds, "cli_peak_device_bytes": cli_peak_bytes,

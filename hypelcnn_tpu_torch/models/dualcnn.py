@@ -11,6 +11,11 @@
 - Both branches flattened in HWC order, HSI first, then FC 9c / 6c / 3c with
   dropout and a linear ``fc4``.
 - Leaky-ReLU, xavier init, biases, no batch norm; softmax cross-entropy.
+- Activations are NCHW views of channels-last memory for
+  :func:`~hypelcnn_tpu_torch.models.layers.conv2d`: a convolution whose
+  kernel covers its window (the HSI 3x3 on the cropped 3x3 patch, the
+  LiDAR 5x5 on the 5x5 one) is one GEMM against its Toeplitz weight; the
+  1x1 connectors and the LiDAR 3x3 go to cuDNN.
 
 Dropout drops with rate ``1 - drop_out_ratio`` (the reference's keep-prob
 quirk, kept by the JAX package): it is off at ``drop_out_ratio = 1.0``.

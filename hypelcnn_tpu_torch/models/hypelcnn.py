@@ -17,7 +17,10 @@ every layer in bfloat16, as the JAX module does; parameters, batch-norm
 statistics, the logits and the reconstruction stay float32.
 
 The public forward takes and returns NHWC, as the JAX module does; inside,
-activations are NCHW views for ``nn.Conv2d``. The flatten before the FC
+activations are NCHW views of channels-last memory for
+:func:`~hypelcnn_tpu_torch.models.layers.conv2d`: the 1x1 stacks go to cuDNN,
+and each level's 3x3 convolution, whose kernel covers the window at k = 3,
+is one GEMM against its Toeplitz weight. The flatten before the FC
 pyramid is in HWC order, as in JAX (an NCHW flatten would permute ``fc_0``).
 The layer names and widths are those of the flax module, so its variables
 load by name.

@@ -26,11 +26,23 @@ A ``SlimConv`` or ``SlimDense`` whose kernel holds a slice of its output
 channels (``shard_module_``, on a mesh with a model axis) computes those
 channels from the full input and gathers the others' before its bias,
 batch norm and activation, which see the full width on every model rank.
+
+Every convolution goes through :func:`conv2d`, which routes by shape alone.
+A SAME convolution whose odd kernel ``k > 1`` covers its input (``H <= k``
+and ``W <= k``) is a dense linear map from ``Cin*H*W`` inputs to
+``Cout*H*W`` outputs: one GEMM against its Toeplitz weight
+(:func:`toeplitz_weight`), which does the work of the convolution's taps,
+SAME padding included. Without autograd (a sweep) the forward is that GEMM;
+under autograd (a training step) the forward stays ``F.conv2d``'s and the
+input and weight gradients are the two GEMMs of its backward. Everything
+else (1x1, VALID, a kernel smaller than its window) goes to ``F.conv2d``.
+``conv2d.gemm`` and ``conv2d.cudnn`` count the convolutions of each route.
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
 import math
 import re
 from typing import Callable, Dict, Mapping, Optional, Sequence
@@ -105,6 +117,165 @@ def _column_mesh(layer: nn.Module, weight: torch.Tensor, features: int) -> Optio
         raise RuntimeError(f"a kernel of {weight.shape[0]} of {features} output channels needs "
                            "a mesh whose model axis shards it")
     return mesh
+
+
+@functools.lru_cache(maxsize=None)
+def _reversed(n: int, device: torch.device) -> torch.Tensor:
+    """``[n - 1, ..., 0]`` on ``device``, made once."""
+    return torch.arange(n - 1, -1, -1, device=device)
+
+
+def _taps(weight_shape: Sequence[int], height: int, width: int):
+    """The crop of the kernel's taps that a ``height x width`` window reaches,
+    and the unfold's padding that makes its positions the output pixels."""
+    kh, kw = weight_shape[2:]
+    pad_h, pad_w = height - 1 - kh // 2, width - 1 - kw // 2
+    return (max(-pad_h, 0), max(-pad_w, 0)), (max(pad_h, 0), max(pad_w, 0))
+
+
+def toeplitz_weight(weight: torch.Tensor, height: int, width: int,
+                    channels_last: bool = False) -> torch.Tensor:
+    """The matrix of a SAME convolution by ``weight`` (``[Cout, Cin, k, k]``, odd
+    ``k``) over a ``height x width`` input: ``T[(co, i, j), (ci, p, q)] =
+    weight[co, ci, p - i + k // 2, q - j + k // 2]``, and 0 where the tap falls
+    outside the kernel. With ``channels_last`` its rows are ``(i, j, co)`` and
+    its columns ``(p, q, ci)``.
+
+    Two kernels whatever the shape: one unfold of the weight with a
+    ``height x width`` kernel, its taps padded (or cropped) so that the
+    unfold's positions are the output pixels in reverse, then one
+    ``index_select`` that reverses them into ``T``'s layout.
+    :func:`_toeplitz_adjoint` is its transpose.
+    """
+    cout, cin, kh, kw = weight.shape
+    hw = height * width
+    (crop_h, crop_w), padding = _taps(weight.shape, height, width)
+    weight = weight[:, :, crop_h:kh - crop_h, crop_w:kw - crop_w]
+    # [co, (ci, p, q), (s, t)]: position (s, t) is the output pixel (H - 1 - s, W - 1 - t)
+    cols = F.unfold(weight.reshape(1, cout * cin, *weight.shape[2:]), (height, width),
+                    padding=padding).view(cout, cin, hw, hw)
+    rev = _reversed(hw, weight.device)
+    if channels_last:
+        return cols.permute(3, 0, 2, 1).index_select(0, rev).view(hw * cout, hw * cin)
+    return cols.permute(0, 3, 1, 2).index_select(1, rev).view(cout * hw, cin * hw)
+
+
+def _toeplitz_adjoint(grad: torch.Tensor, weight_shape: Sequence[int], height: int,
+                      width: int, channels_last: bool) -> torch.Tensor:
+    """The weight's gradient from ``T``'s: the transpose of
+    :func:`toeplitz_weight`, one ``index_select`` and one fold (each output a
+    sum in a fixed order, no atomic adds)."""
+    cout, cin, kh, kw = weight_shape
+    hw = height * width
+    (crop_h, crop_w), padding = _taps(weight_shape, height, width)
+    if channels_last:
+        rows = grad.view(hw, cout, hw, cin).permute(1, 3, 2, 0)
+    else:
+        rows = grad.view(cout, hw, cin, hw).permute(0, 2, 3, 1)
+    cols = rows.index_select(3, _reversed(hw, grad.device))  # [co, ci, (p, q), (s, t)]
+    taps = (kh - 2 * crop_h, kw - 2 * crop_w)
+    out = F.fold(cols.view(1, cout * cin * hw, hw), taps, (height, width),
+                 padding=padding).view(cout, cin, *taps)
+    return F.pad(out, (crop_w, crop_w, crop_h, crop_h)) if crop_h or crop_w else out
+
+
+def _pixel_rows(x: torch.Tensor, channels_last: bool) -> torch.Tensor:
+    """``[B, C, H, W]`` -> ``[B, C*H*W]`` in the column order of :func:`toeplitz_weight`."""
+    if channels_last:
+        return x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)
+    return x.reshape(x.shape[0], -1)
+
+
+def _image(rows: torch.Tensor, shape: Sequence[int], channels_last: bool) -> torch.Tensor:
+    """The inverse of :func:`_pixel_rows`: a view of ``rows`` as ``shape`` (NCHW)."""
+    batch, channels, height, width = shape
+    if channels_last:
+        return rows.view(batch, height, width, channels).permute(0, 3, 1, 2)
+    return rows.view(batch, channels, height, width)
+
+
+def _channels_last(x: torch.Tensor) -> bool:
+    """Whether the channels vary faster than the columns in ``x``'s memory
+    (an NHWC tensor's NCHW view): the GEMM then runs channels last, so that
+    neither side is transposed."""
+    return x.stride(1) < x.stride(3)
+
+
+def conv2d_gemm(x: torch.Tensor, weight: torch.Tensor,
+                bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``F.conv2d(x, weight, bias, padding=k // 2)`` as one GEMM of the input's
+    pixels against :func:`toeplitz_weight`, in the input's memory order (the
+    output keeps it), the bias added after the product. A forward only: the
+    route under autograd is :class:`_GemmGradients`."""
+    cl = _channels_last(x)
+    y = F.linear(_pixel_rows(x, cl), toeplitz_weight(weight, *x.shape[2:], cl))
+    y = _image(y, (x.shape[0], weight.shape[0], *x.shape[2:]), cl)
+    return y if bias is None else y + bias.view(1, -1, 1, 1)
+
+
+class _GemmGradients(torch.autograd.Function):
+    """``F.conv2d(x, weight, bias, padding=k // 2)``, whose gradients are
+    GEMMs against :func:`toeplitz_weight`: ``grad @ T`` for the input and
+    ``gradᵀ @ x`` for ``T``, taken onto the weight by its transpose."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias):
+        ctx.save_for_backward(x, weight)
+        return F.conv2d(x, weight, bias, padding=weight.shape[-1] // 2)
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, weight = ctx.saved_tensors
+        cl = _channels_last(x)
+        size = x.shape[2:]
+        rows = _pixel_rows(grad, cl)
+        grad_x = grad_w = grad_b = None
+        if ctx.needs_input_grad[0]:
+            grad_x = _image(rows @ toeplitz_weight(weight, *size, cl), x.shape, cl)
+        if ctx.needs_input_grad[1]:
+            grad_w = _toeplitz_adjoint(rows.t() @ _pixel_rows(x, cl), weight.shape, *size, cl)
+        if ctx.needs_input_grad[2]:
+            grad_b = grad.sum((0, 2, 3))
+        return grad_x, grad_w, grad_b
+
+
+def conv2d(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor],
+           padding: int) -> torch.Tensor:
+    """``F.conv2d(x, weight, bias, padding=padding)``, routed by shape: where
+    the padding is SAME, the kernel is wider than 1 and it covers the input,
+    the GEMMs against :func:`toeplitz_weight`; ``F.conv2d`` (cuDNN on the
+    card) otherwise. ``conv2d.gemm`` and ``conv2d.cudnn`` count the calls of
+    each route.
+
+    A forward that autograd records stays ``F.conv2d``'s and only its
+    gradients are GEMMs: a training step then rounds its forward as the plain
+    convolution does. DUALCNN's training amplifies a change of the forward's
+    float32 summation order alone (not of the backward's) into its parameters'
+    change over three steps (PERF.md §6)."""
+    k = weight.shape[-1]
+    if k > 1 and padding == k // 2 and x.shape[-2] <= k and x.shape[-1] <= k:
+        conv2d.gemm += 1
+        if torch.is_grad_enabled():
+            return _GemmGradients.apply(x, weight, bias)
+        return conv2d_gemm(x, weight, bias)
+    conv2d.cudnn += 1
+    return F.conv2d(x, weight, bias, padding=padding)
+
+
+def reset_conv_counts() -> None:
+    """Set both of :func:`conv2d`'s counts to 0."""
+    conv2d.gemm = 0
+    conv2d.cudnn = 0
+
+
+reset_conv_counts()
+
+
+class Conv2d(nn.Conv2d):
+    """``nn.Conv2d`` (stride 1, zero padding) that convolves through :func:`conv2d`."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return conv2d(x, self.weight, self.bias, self.padding[0])
 
 
 @contextlib.contextmanager
@@ -209,8 +380,8 @@ class SlimConv(nn.Module):
             pad = 0
         else:
             raise ValueError(f"padding must be SAME or VALID, got {padding!r}")
-        self.Conv_0 = nn.Conv2d(in_features, features, kernel, padding=pad,
-                                bias=not use_batch_norm)
+        self.Conv_0 = Conv2d(in_features, features, kernel, padding=pad,
+                             bias=not use_batch_norm)
         self.BatchNorm_0 = SlimBatchNorm(features, bn_momentum,
                                          always_batch_stats=always_batch_stats, dtype=dtype) \
             if use_batch_norm else None
@@ -225,7 +396,7 @@ class SlimConv(nn.Module):
         if dtype == torch.float32 and mesh is None:
             x = conv(x.to(dtype))
         else:
-            x = _cast_product(lambda a, w: F.conv2d(a, w, padding=conv.padding), x, conv.weight,
+            x = _cast_product(lambda a, w: conv2d(a, w, None, conv.padding[0]), x, conv.weight,
                               conv.bias, dtype, mesh)
         if self.BatchNorm_0 is not None:
             x = self.BatchNorm_0(x)
@@ -359,9 +530,9 @@ class FusedMultiScaleLevel(nn.Module):
             [getattr(self, f"conv{k}x{k}_bias") for k in self.kernel_sizes])
         dtype = _promote(x, self.dtype)
         if dtype == torch.float32:
-            y = F.conv2d(x.to(dtype), torch.cat(kernels, dim=0), bias, padding=kmax // 2)
+            y = conv2d(x.to(dtype), torch.cat(kernels, dim=0), bias, kmax // 2)
         else:
-            y = _cast_product(lambda a, w: F.conv2d(a, w, padding=kmax // 2), x,
+            y = _cast_product(lambda a, w: conv2d(a, w, None, kmax // 2), x,
                               torch.cat(kernels, dim=0), bias, dtype)
         if self.BatchNorm_0 is not None:
             y = self.BatchNorm_0(y)

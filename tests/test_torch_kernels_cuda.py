@@ -21,7 +21,7 @@ from hypelcnn_tpu_torch.infer.scene_inference import predict_full_scene
 from hypelcnn_tpu_torch.kernels import build
 from hypelcnn_tpu_torch.kernels.window_gather import reset_launches, window_gather_cuda
 from hypelcnn_tpu_torch.models.hypelcnn import HYPELCNNModel
-from hypelcnn_tpu_torch.models.layers import init_parameters
+from hypelcnn_tpu_torch.models.layers import conv2d, conv2d_gemm, init_parameters
 from hypelcnn_tpu_torch.ops.window_gather import gather_patches_torch
 from hypelcnn_tpu_torch.train.trainer import ClassificationTrainer
 
@@ -330,3 +330,71 @@ def test_classic_svm_grid_on_the_card_is_the_cpu_grid(cuda):
     assert grids[0]["best_params"] == grids[1]["best_params"]
     np.testing.assert_allclose(grids[0]["mean_test_score"], grids[1]["mean_test_score"],
                                rtol=0, atol=0.01)
+
+
+# (batch, in, out channels): HYPELCNN-480's three 3x3 levels at batch 16,384,
+# DUALCNN's widest HSI levels (480 -> 480, 960 -> 240) at batch 4,096
+CONV_GEMM_SHAPES = [(16384, 120, 60), (16384, 120, 30), (16384, 60, 15),
+                    (4096, 480, 480), (4096, 960, 240)]
+
+
+def _conv_gemm_inputs(cuda, batch, cin, cout):
+    gen = torch.Generator(device=cuda).manual_seed(batch + cin + cout)
+    # an NHWC tensor's NCHW view, as the models hand it over
+    x = torch.randn(batch, 3, 3, cin, generator=gen, device=cuda).permute(0, 3, 1, 2)
+    weight = torch.randn(cout, cin, 3, 3, generator=gen, device=cuda) / (3 * cin ** 0.5)
+    bias = torch.randn(cout, generator=gen, device=cuda)
+    upstream = torch.randn(batch, cout, 3, 3, generator=gen, device=cuda)
+    return x, weight, bias, upstream
+
+
+def _cudnn(x, weight, bias):
+    return torch.nn.functional.conv2d(x, weight, bias, padding=1)
+
+
+def _routed(x, weight, bias):
+    return conv2d(x, weight, bias, 1)
+
+
+def _conv_and_grads(sweep, step, x, weight, bias, upstream):
+    """A sweep's forward (without autograd), then a training step's forward
+    and its input, weight and bias gradients (under autograd)."""
+    with torch.no_grad():
+        swept = sweep(x, weight, bias)
+    leaves = [t.detach().requires_grad_() for t in (x, weight, bias)]
+    y = step(*leaves)
+    return [swept, y.detach(), *torch.autograd.grad(y, leaves, upstream)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch, cin, cout", CONV_GEMM_SHAPES)
+def test_conv_gemm_matches_cudnn_at_the_cells_shapes(cuda, batch, cin, cout):
+    """The sweep's GEMM forward, and a training step's forward (cuDNN's own)
+    and input, weight and bias gradients (GEMMs), float32 with TF32 off,
+    against cuDNN in float64, beside cuDNN in float32. Tolerance 1e-5 of the
+    largest float64 magnitude: float32 sums of up to 8,640 products (output,
+    input gradient) and 147,456 (the weight gradient, 16,384 x 9) in two
+    orders, whose rounding grows like sqrt(terms) x 2^-24 of the terms."""
+    x, weight, bias, upstream = _conv_gemm_inputs(cuda, batch, cin, cout)
+    got = _conv_and_grads(conv2d_gemm, _routed, x, weight, bias, upstream)
+    cudnn = _conv_and_grads(_cudnn, _cudnn, x, weight, bias, upstream)
+    exact = _conv_and_grads(_cudnn, _cudnn, x.double(), weight.double(), bias.double(),
+                            upstream.double())
+    names = ("sweep output", "step output", "input", "weight", "bias")
+    for name, g, c, e in zip(names, got, cudnn, exact):
+        scale = float(e.abs().max())
+        err = float((g.double() - e).abs().max()) / scale
+        cudnn_err = float((c.double() - e).abs().max()) / scale
+        print(f"{batch}x{cin}->{cout} {name}: {err:.3g}, cuDNN {cudnn_err:.3g}")
+        assert err < 1e-5, (name, err, cudnn_err)
+    assert torch.equal(got[1], cudnn[1])  # a training step's forward is cuDNN's own
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch, cin, cout", [CONV_GEMM_SHAPES[0], CONV_GEMM_SHAPES[3]])
+def test_conv_gemm_repeats_bit_for_bit(cuda, batch, cin, cout):
+    """No atomic adds: two passes on the same inputs give the same bits."""
+    inputs = _conv_gemm_inputs(cuda, batch, cin, cout)
+    first = _conv_and_grads(conv2d_gemm, _routed, *inputs)
+    second = _conv_and_grads(conv2d_gemm, _routed, *inputs)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
