@@ -25,17 +25,26 @@ The prediction vectors ``u_hat`` are kept as ``[data_size, classes, dco, B]``,
 the batched product's natural output: each routing product then reads them
 as a strided matrix of the same memory, with no copy (at a sweep band of
 30,480 windows of 3x3 they are 8.4 GB).
+
+Spans (``core/trace.py``; the forward's call number is their id):
+``cap.transform`` around the ``u_hat`` product and its bias, ``cap.routing``
+around every routing round up to the class norms. Counters of the last
+forward, plain integers on the class: ``CAPModule.u_hat_bytes`` (the bytes of
+``u_hat`` it materialized) and ``CAPModule.routing_products`` (the routing
+products it launched, ``2 * iter_routing - 1``).
 """
 
 from __future__ import annotations
 
 import functools
+import itertools
 import math
 from typing import Any, Dict, Optional, Sequence
 
 import torch
 from torch import nn
 
+from hypelcnn_tpu_torch.core import trace
 from hypelcnn_tpu_torch.core.registry import register_model
 from hypelcnn_tpu_torch.models.base import (
     ModelOutput,
@@ -64,10 +73,13 @@ DEFAULT_PARAMS: Dict[str, Any] = {
     "enable_decoding": True,
     "compute_dtype": "float32",
 }
+_FORWARDS = itertools.count()  # a forward's call number, the id of its spans
 
 
 class CAPModule(nn.Module):
     mesh = None
+    u_hat_bytes = 0  # of the last forward, on every instance
+    routing_products = 0
 
     def __init__(self, class_count: int, params_dict: Dict[str, Any], data_shape: Sequence[int]):
         super().__init__()
@@ -116,28 +128,36 @@ class CAPModule(nn.Module):
         dropout; ``dropout_generator`` is accepted for the trainer's call."""
         batch = x.shape[0]
         d, j, c = self.data_size, self.classes, self.dco
+        call = next(_FORWARDS)
         net = self.PrimaryCaps_layer(self.Conv1_layer(x.permute(0, 3, 1, 2)))
         u = net.permute(0, 2, 3, 1).reshape(batch, d, self.pco)  # NHWC order, as in JAX
 
-        # u_hat[d, q, b] = sum_p w[d, p, q] u[b, d, p] + b_lin[d, q]: one product batched over d
-        # (the bias is added in place: the product's backward does not need its output)
-        u_hat = torch.bmm(self.digitcaps_w.transpose(1, 2), u.permute(1, 2, 0))
-        u_hat.add_(self.digitcaps_b.unsqueeze(2))
+        with trace.span("cap.transform", call):
+            # u_hat[d, q, b] = sum_p w[d, p, q] u[b, d, p] + b_lin[d, q]: one product batched
+            # over d (the bias is added in place: the product's backward does not need its output)
+            u_hat = torch.bmm(self.digitcaps_w.transpose(1, 2), u.permute(1, 2, 0))
+            u_hat.add_(self.digitcaps_b.unsqueeze(2))
+        CAPModule.u_hat_bytes = u_hat.numel() * u_hat.element_size()
         by_class = u_hat.view(d, j, c * batch).transpose(0, 1)  # [J, D, C*B], no copy
 
-        b_ij = torch.zeros((d, j), dtype=u_hat.dtype, device=u_hat.device)
-        v = None
-        for round_ in range(self.iter_routing):
-            c_ij = torch.softmax(b_ij, dim=1)
-            s = torch.bmm(c_ij.t().unsqueeze(1), by_class).view(j, c, batch)
-            v = squash(s, dim=1)
-            if round_ + 1 < self.iter_routing:  # the last round's agreement is unused
-                agreement = torch.bmm(by_class, v.view(j, c * batch, 1)).squeeze(2)
-                if self.mesh is not None and self.mesh.sharded:
-                    agreement = self.mesh.all_reduce_sum(agreement)
-                b_ij = b_ij + agreement.t()
+        products = 0
+        with trace.span("cap.routing", call):
+            b_ij = torch.zeros((d, j), dtype=u_hat.dtype, device=u_hat.device)
+            v = None
+            for round_ in range(self.iter_routing):
+                c_ij = torch.softmax(b_ij, dim=1)
+                s = torch.bmm(c_ij.t().unsqueeze(1), by_class).view(j, c, batch)
+                products += 1
+                v = squash(s, dim=1)
+                if round_ + 1 < self.iter_routing:  # the last round's agreement is unused
+                    agreement = torch.bmm(by_class, v.view(j, c * batch, 1)).squeeze(2)
+                    products += 1
+                    if self.mesh is not None and self.mesh.sharded:
+                        agreement = self.mesh.all_reduce_sum(agreement)
+                    b_ij = b_ij + agreement.t()
 
-        y_conv = torch.linalg.vector_norm(v, dim=1).t()  # [B, J]
+            y_conv = torch.linalg.vector_norm(v, dim=1).t()  # [B, J]
+        CAPModule.routing_products = products
 
         decoder_out = None
         if self.training and self.enable_decoding and labels is not None:
