@@ -327,6 +327,7 @@ from hypelcnn_tpu_torch.infer.scene_inference import (
 )
 from hypelcnn_tpu_torch.kernels import build
 from hypelcnn_tpu_torch.kernels.window_gather import reset_launches, window_gather_cuda
+from hypelcnn_tpu_torch.models.cap import CAPModule
 from hypelcnn_tpu_torch.models.hypelcnn import HYPELCNNModel
 from hypelcnn_tpu_torch.models.layers import (
     SlimBatchNorm,
@@ -1133,8 +1134,10 @@ def phase_family(device, work: Path, family: Family) -> dict:
     # the infer CLI's sweep warmed the same shapes; the timed sweep's map is
     # the kernel sweep's
     swept = []
+    CAPModule.reset_routes()
     sweep = _timed_sweeps(lambda: swept.append(predict_full_scene(module, scene, device=device)),
                           runs=1, warm_up=False)
+    sweep_cap_routes = dict(CAPModule.routes)
     check(np.array_equal(swept[0], plain_map),
           f"{family.model}: the kernel sweep's class map differs from the plain gather's")
     sweep_peak_bytes = torch.cuda.max_memory_allocated()
@@ -1171,14 +1174,19 @@ def phase_family(device, work: Path, family: Family) -> dict:
                    "sweep_bound_seconds": max(flop_bound, io_bound),
                    "sweep_bound_by": "bytes" if io_bound > flop_bound else "operations"})
     if family.model == "CAPModel":
-        # this implementation's traffic, not the function's: u_hat
-        # ([data_size, classes*dco] a window) is written once, read by every
-        # round's weighted sum and by each agreement but the last
-        d, _, q = module.digitcaps_w.shape
-        u_hat_bytes = windows * d * q * 4
-        passes = 2 * module.iter_routing
-        record.update({"u_hat_bytes_per_band": u_hat_bytes // n_bands, "u_hat_passes": passes,
-                       "u_hat_traffic_bound_seconds": passes * u_hat_bytes / HBM_BYTES_PER_S})
+        # this implementation's traffic, not the function's: the u_hat that the
+        # sweep's last forward (a band) materialized, written once, read by
+        # every round's weighted sum and by each agreement but the last; the
+        # sweep takes the folded route, which forms none
+        u_hat_bytes = CAPModule.u_hat_bytes
+        passes = 2 * module.iter_routing if u_hat_bytes else 0
+        print(f"{family.phase}: the sweep's CAP routes {sweep_cap_routes}", flush=True)
+        check(sweep_cap_routes == {"u_hat": 0, "folded": n_bands} and u_hat_bytes == 0,
+              f"CAP's sweep took the u_hat route: {sweep_cap_routes}, {u_hat_bytes} B of u_hat")
+        record.update({"cap_routes": sweep_cap_routes, "u_hat_bytes_per_band": u_hat_bytes,
+                       "u_hat_passes": passes,
+                       "u_hat_traffic_bound_seconds":
+                           passes * u_hat_bytes * n_bands / HBM_BYTES_PER_S})
     emit(record)
     return {"family": family, "data": data, "params": params, "scene": scene, "tables": tables,
             "train_launches": by_batch, "sweep_launches": sweep_launches}

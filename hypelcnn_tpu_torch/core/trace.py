@@ -6,9 +6,11 @@
 ``sweep.map`` in each full-scene sweep (``infer/scene_inference.py``). The
 phases of a path tile it: no span encloses a whole step or scene. Inside a
 phase, CAP's forward (``models/cap.py``) marks its capsule layer:
-``cap.transform`` (the prediction vectors) and ``cap.routing`` (the routing
-rounds and class norms), with the forward's call number as ``id``; they are
-children of ``sweep.band`` in a sweep and of ``train_step.forward`` in a step.
+``cap.transform`` (the prediction vectors, or on the folded route the first
+round's folded weight and weighted sum) and ``cap.routing`` (the rest of the
+routing and the class norms), with the forward's call number as ``id``; they
+are children of ``sweep.band`` in a sweep and of ``train_step.forward`` in a
+step.
 
 Spans are off unless a ``torch.profiler`` session is active; off, a span is
 one read of the profiler's own flag and a shared no-op context. Under a

@@ -21,17 +21,35 @@
   reconstructs the input from the label's capsule; the loss is cross-entropy
   plus the reconstruction MSE.
 
-The prediction vectors ``u_hat`` are kept as ``[data_size, classes, dco, B]``,
-the batched product's natural output: each routing product then reads them
-as a strided matrix of the same memory, with no copy (at a sweep band of
-30,480 windows of 3x3 they are 8.4 GB).
+Two routes through the capsule layer, chosen by what the forward observes:
 
-Spans (``core/trace.py``; the forward's call number is their id):
-``cap.transform`` around the ``u_hat`` product and its bias, ``cap.routing``
-around every routing round up to the class norms. Counters of the last
-forward, plain integers on the class: ``CAPModule.u_hat_bytes`` (the bytes of
-``u_hat`` it materialized) and ``CAPModule.routing_products`` (the routing
-products it launched, ``2 * iter_routing - 1``).
+- Where autograd records (``torch.is_grad_enabled()`` and the primary
+  capsules or a capsule weight require grad: every training step),
+  :meth:`CAPModule.u_hat_route` materializes the prediction vectors
+  ``u_hat`` as ``[data_size, classes, dco, B]``, the batched product's
+  natural output, adds their bias in place, and routes over them with one
+  product a weighted sum and one an agreement, each reading ``u_hat`` as a
+  strided matrix of the same memory (8.4 GB at a sweep band of 30,480
+  windows of 3x3). It keeps the JAX package's summation order, which CAP's
+  training trajectory is held to.
+- Otherwise (``inference_mode``, ``no_grad``: sweeps, drains),
+  :meth:`CAPModule.folded_route` never forms ``u_hat``. The couplings are
+  one ``[data_size, classes]`` table for the whole batch, so each round folds
+  them into the capsule weights, and the weighted sum is one float32 GEMM of
+  the primary capsules ``U [B, data_size*pco]`` against the folded weight
+  ``[data_size*pco, classes*dco]``; the agreement is the GEMM ``U^T V``,
+  contracted with the weights and the bias. The same sums, reassociated.
+
+The routes share ``squash``, the spans and the counters. Spans
+(``core/trace.py``; the forward's call number is their id): ``cap.transform``
+around the ``u_hat`` product and its bias, or around the first round's folded
+weight and weighted sum; ``cap.routing`` around the rest of the routing up to
+the class norms. Counters, plain values on the class:
+``CAPModule.u_hat_bytes`` (the bytes of ``u_hat`` the last forward
+materialized, 0 after a folded one), ``CAPModule.routing_products`` (the
+routing products the last forward launched, ``2 * iter_routing - 1`` on
+either route) and ``CAPModule.routes`` (the forwards each route took since
+:meth:`CAPModule.reset_routes`).
 """
 
 from __future__ import annotations
@@ -80,6 +98,7 @@ class CAPModule(nn.Module):
     mesh = None
     u_hat_bytes = 0  # of the last forward, on every instance
     routing_products = 0
+    routes = {"u_hat": 0, "folded": 0}  # forwards a route, since reset_routes
 
     def __init__(self, class_count: int, params_dict: Dict[str, Any], data_shape: Sequence[int]):
         super().__init__()
@@ -121,17 +140,18 @@ class CAPModule(nn.Module):
         self.digitcaps_w.uniform_(-bound, bound, generator=generator)
         self.digitcaps_b.zero_()
 
-    def forward(self, x: torch.Tensor, labels: Optional[torch.Tensor] = None,
-                dropout_generator: Optional[torch.Generator] = None) -> ModelOutput:
-        """``x``: NHWC float32 patches ``[B, k, k, C]``; ``labels``: one-hot
-        ``[B, classes]``, which the decoder needs in train mode. CAP has no
-        dropout; ``dropout_generator`` is accepted for the trainer's call."""
-        batch = x.shape[0]
-        d, j, c = self.data_size, self.classes, self.dco
-        call = next(_FORWARDS)
-        net = self.PrimaryCaps_layer(self.Conv1_layer(x.permute(0, 3, 1, 2)))
-        u = net.permute(0, 2, 3, 1).reshape(batch, d, self.pco)  # NHWC order, as in JAX
+    @classmethod
+    def reset_routes(cls) -> None:
+        """Set both counts of :attr:`routes` to 0."""
+        cls.routes = {"u_hat": 0, "folded": 0}
 
+    def u_hat_route(self, u: torch.Tensor, call: int):
+        """Route the primary capsules ``u [B, data_size, pco]`` over
+        materialized prediction vectors. Returns the digit capsules ``v``
+        ``[classes, dco, B]``, the class scores ``[B, classes]`` and the last
+        round's routing logits ``[data_size, classes]``."""
+        batch = u.shape[0]
+        d, j, c = self.data_size, self.classes, self.dco
         with trace.span("cap.transform", call):
             # u_hat[d, q, b] = sum_p w[d, p, q] u[b, d, p] + b_lin[d, q]: one product batched
             # over d (the bias is added in place: the product's backward does not need its output)
@@ -158,6 +178,65 @@ class CAPModule(nn.Module):
 
             y_conv = torch.linalg.vector_norm(v, dim=1).t()  # [B, J]
         CAPModule.routing_products = products
+        CAPModule.routes["u_hat"] += 1
+        return v, y_conv, b_ij
+
+    def folded_route(self, u: torch.Tensor, call: int):
+        """Route the primary capsules ``u [B, data_size, pco]`` with each
+        round's couplings folded into the capsule weights: ``u_hat`` is never
+        formed. Returns what :meth:`u_hat_route` returns."""
+        batch = u.shape[0]
+        d, p, j, c = self.data_size, self.pco, self.classes, self.dco
+        w = self.digitcaps_w.view(d, p, j, c)
+        bias = self.digitcaps_b.view(d, j, c)
+        flat = u.reshape(batch, d * p)
+
+        def weighted_sum(b_ij: torch.Tensor) -> torch.Tensor:
+            # s[b, j, c] = sum_(d, p) u[b, d, p] (c_ij[d, j] w[d, p, j, c])
+            #              + sum_d c_ij[d, j] b_lin[d, j, c]
+            c_ij = torch.softmax(b_ij, dim=1)
+            folded = (w * c_ij.view(d, 1, j, 1)).view(d * p, j * c)
+            shift = (c_ij.unsqueeze(2) * bias).sum(0).view(1, j * c)
+            return torch.addmm(shift, flat, folded).view(batch, j, c)
+
+        b_ij = torch.zeros((d, j), dtype=u.dtype, device=u.device)
+        with trace.span("cap.transform", call):
+            s = weighted_sum(b_ij)
+        CAPModule.u_hat_bytes = 0
+        products = 1
+        with trace.span("cap.routing", call):
+            for round_ in range(self.iter_routing):
+                if round_:
+                    s = weighted_sum(b_ij)
+                    products += 1
+                v = squash(s, dim=2)
+                if round_ + 1 < self.iter_routing:  # the last round's agreement is unused
+                    # a[d, j] = sum_(p, c) w[d, p, j, c] (U^T V)[d, p, j, c]
+                    #           + sum_c b_lin[d, j, c] sum_b v[b, j, c]
+                    m = torch.mm(flat.t(), v.view(batch, j * c)).view(d, p, j, c)
+                    agreement = (w * m).sum((1, 3)) + (bias * v.sum(0)).sum(2)
+                    products += 1
+                    if self.mesh is not None and self.mesh.sharded:
+                        agreement = self.mesh.all_reduce_sum(agreement)
+                    b_ij = b_ij + agreement
+
+            y_conv = torch.linalg.vector_norm(v, dim=2)  # [B, J]
+        CAPModule.routing_products = products
+        CAPModule.routes["folded"] += 1
+        return v.permute(1, 2, 0), y_conv, b_ij
+
+    def forward(self, x: torch.Tensor, labels: Optional[torch.Tensor] = None,
+                dropout_generator: Optional[torch.Generator] = None) -> ModelOutput:
+        """``x``: NHWC float32 patches ``[B, k, k, C]``; ``labels``: one-hot
+        ``[B, classes]``, which the decoder needs in train mode. CAP has no
+        dropout; ``dropout_generator`` is accepted for the trainer's call."""
+        batch = x.shape[0]
+        call = next(_FORWARDS)
+        net = self.PrimaryCaps_layer(self.Conv1_layer(x.permute(0, 3, 1, 2)))
+        u = net.permute(0, 2, 3, 1).reshape(batch, self.data_size, self.pco)  # NHWC order, as in JAX
+        recorded = torch.is_grad_enabled() and (
+            u.requires_grad or self.digitcaps_w.requires_grad or self.digitcaps_b.requires_grad)
+        v, y_conv, _ = (self.u_hat_route if recorded else self.folded_route)(u, call)
 
         decoder_out = None
         if self.training and self.enable_decoding and labels is not None:

@@ -1,8 +1,8 @@
 """CAP's capsule-layer spans and counters (``models/cap.py``) on the CPU: under
 a profile one ``cap.transform`` and one ``cap.routing`` inside each
-``sweep.band`` of a sweep and inside ``train_step.forward`` of a step, none
-without a profile; the counters of the last forward; and the benchmark's
-three capsule-layer metrics read from them."""
+``sweep.band`` of a sweep (the folded route) and inside ``train_step.forward``
+of a step (the ``u_hat`` route), none without a profile; the counters of the
+last forward; and the benchmark's three capsule-layer metrics read from them."""
 
 import math
 from pathlib import Path
@@ -74,14 +74,20 @@ def test_cap_spans_off_without_a_profile(fresh, data):
 
 
 def test_cap_counters_of_the_last_forward(data):
+    """A sweep and a no-grad forward take the folded route, which
+    materializes no ``u_hat``; a training forward materializes all of it."""
     module = _module(data)
     _sweep(module, data)
-    windows = 8 * 24
-    assert CAPModule.u_hat_bytes == module.data_size * data.class_count * module.dco * 4 * windows
+    assert CAPModule.u_hat_bytes == 0
     assert CAPModule.routing_products == 2 * module.iter_routing - 1
     with torch.no_grad():
         module(torch.rand(5, *data.data_shape))
+    assert CAPModule.u_hat_bytes == 0
+    labels = torch.nn.functional.one_hot(torch.arange(5) % data.class_count,
+                                         data.class_count).float()
+    module.train()(torch.rand(5, *data.data_shape), labels)
     assert CAPModule.u_hat_bytes == module.data_size * data.class_count * module.dco * 4 * 5
+    assert CAPModule.routing_products == 2 * module.iter_routing - 1
 
 
 def test_cap_spans_inside_the_training_forward(fresh, data):
@@ -148,8 +154,7 @@ def test_capsule_metrics_read_a_profiled_stretch(fresh, monkeypatch):
     assert result["correct"]
     share = result["metrics"]["capsule_share.sweep"]
     assert 0 < share["value"] < 100 and share["unit"] == "%"
-    data_size = 3 * 3 * SMALL["primary_capsule_count"]
-    assert result["metrics"]["u_hat_bytes_per_window.sweep"] == {
-        "value": data_size * 5 * SMALL["digit_capsule_output_space"] * 4.0, "unit": "bytes"}
+    # the sweep's folded route materializes no u_hat
+    assert result["metrics"]["u_hat_bytes_per_window.sweep"] == {"value": 0.0, "unit": "bytes"}
     assert "capsule_roofline.sweep" not in result["metrics"]
     assert math.isfinite(share["value"])

@@ -7,6 +7,9 @@ The file imports no JAX, so that it runs where only PyTorch is installed;
     python -m pytest --noconftest -p no:cacheprovider -q tests/test_torch_kernels_cuda.py
 """
 
+import json
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -15,13 +18,16 @@ from hypelcnn_tpu_torch.core.platform import resolve_device
 from hypelcnn_tpu_torch.core.registry import get_importer_from_name, get_model_from_name
 from hypelcnn_tpu_torch.data.augmentation import AugmentationInfo
 from hypelcnn_tpu_torch.data.loaders.synthetic import SyntheticDataLoader
+from hypelcnn_tpu_torch.data.scene import Scene
 from hypelcnn_tpu_torch.gan.shadow_ops import create_gan_shadow_struct
 from hypelcnn_tpu_torch.gan.wrapper_registry import get_trainer_dict
 from hypelcnn_tpu_torch.infer.scene_inference import predict_full_scene
 from hypelcnn_tpu_torch.kernels import build
 from hypelcnn_tpu_torch.kernels.window_gather import reset_launches, window_gather_cuda
+from hypelcnn_tpu_torch.models.cap import CAPModel
 from hypelcnn_tpu_torch.models.hypelcnn import HYPELCNNModel
 from hypelcnn_tpu_torch.models.layers import conv2d, conv2d_gemm, init_parameters
+from hypelcnn_tpu_torch.ops.nn import squash
 from hypelcnn_tpu_torch.ops.window_gather import gather_patches_torch
 from hypelcnn_tpu_torch.train.trainer import ClassificationTrainer
 
@@ -398,3 +404,113 @@ def test_conv_gemm_repeats_bit_for_bit(cuda, batch, cin, cout):
     first = _conv_and_grads(conv2d_gemm, _routed, *inputs)
     second = _conv_and_grads(conv2d_gemm, _routed, *inputs)
     assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+CAP_CONFIG = json.loads((Path(__file__).resolve().parents[1] / "portbench" / "configs"
+                         / "cap.json").read_text())
+
+
+def _cap_band(cuda, seed):
+    """CAP at its published widths with the benchmark's weight recipe, and
+    the primary capsules of one sweep band (16 rows of 1,905 windows of 3x3)
+    of a synthetic scene drawn by the benchmark's recipe."""
+    from portbench import scene as scene_lib
+    from portbench import weights as weights_lib
+    from portbench.drivers.band_sweep import capsule_weights
+    from portbench.reference.cap import Model
+
+    spec = {**CAP_CONFIG["scene"], "height": 18}  # a band's 16 rows and one above and below
+    arrays = scene_lib.make_scene(spec, seed)
+    shape = [3, 3, spec["casi_bands"] + spec["lidar_bands"]]
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    weights = weights_lib.make_weights(Model(CAP_CONFIG["params"], spec["classes"], shape),
+                                       gen, cuda)
+    capsule_weights(weights, gen)
+    module = CAPModel().create_module(spec["classes"], CAP_CONFIG["params"], shape)
+    module.load_state_dict(weights)
+    module = module.to(cuda).eval()
+    cols = torch.arange(spec["width"], dtype=torch.int32, device=cuda)
+    rows = torch.arange(1, 17, dtype=torch.int32, device=cuda)
+    coords = torch.stack([cols.repeat(16), rows.repeat_interleave(spec["width"])], dim=1)
+    x = gather_patches_torch(Scene(arrays.casi, arrays.lidar, 1, True).device_scene(cuda),
+                             coords, 3)
+    with torch.inference_mode():
+        net = module.PrimaryCaps_layer(module.Conv1_layer(x.permute(0, 3, 1, 2)))
+        u = net.permute(0, 2, 3, 1).reshape(x.shape[0], module.data_size, module.pco)
+    return module, u
+
+
+@torch.no_grad()
+def _cap_round64(module, u, logits):
+    """One routing round in float64 from routing logits ``logits``, one class
+    at a time (a band's float64 ``u_hat`` would take 16.9 GB): the round's
+    agreement and the class scores."""
+    d, p, j, c = module.data_size, module.pco, module.classes, module.dco
+    w = module.digitcaps_w.double().view(d, p, j, c)
+    bias = module.digitcaps_b.double().view(d, j, c)
+    by_capsule = u.double().permute(1, 0, 2)  # [D, B, P]
+    couplings = torch.softmax(logits.double(), dim=1)
+    agreement = torch.zeros(d, j, dtype=torch.float64, device=u.device)
+    scores = torch.empty(u.shape[0], j, dtype=torch.float64, device=u.device)
+    for cls in range(j):
+        u_hat = torch.baddbmm(bias[:, cls].unsqueeze(1), by_capsule, w[:, :, cls])  # [D, B, C]
+        v = squash(torch.einsum("dbc,d->bc", u_hat, couplings[:, cls]), dim=-1)
+        scores[:, cls] = torch.linalg.vector_norm(v, dim=-1)
+        agreement[:, cls] = torch.einsum("dbc,bc->d", u_hat, v)
+    return agreement, scores
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed", [4_900_000_003, 4_910_000_019, 4_920_000_041])
+def test_cap_folded_route_at_a_sweep_band(cuda, seed):
+    """At a sweep band of 30,480 windows, float32 with TF32 off, each round of
+    each route against the same round in float64 from the route's own routing
+    logits: the folded route's round-1 and round-2 agreements are no further
+    off than the ``u_hat`` route's, and its class scores no further off
+    either, or within four float32 roundings of the largest score (the
+    scores' own arithmetic rounds them by about two). Where no capsule's
+    last-round logits nearly tie (``band_sweep.near_tie``), the two routes
+    give every window the same class.
+
+    Each round is held from the route's own logits because a round's error
+    is passed on: where two logits of a capsule nearly tie, the couplings
+    amplify one round's rounding ~1,000 times into the next round's, in
+    either route (PERF.md §2). The routing chained in float64 is printed
+    beside, not held."""
+    from portbench.drivers.band_sweep import near_tie
+
+    module, u = _cap_band(cuda, seed)
+    zeros = torch.zeros(module.data_size, module.classes, device=cuda)
+    first64, _ = _cap_round64(module, u, zeros)
+    second64, _ = _cap_round64(module, u, first64)
+    _, chained64 = _cap_round64(module, u, first64 + second64)
+
+    def gap(got, want):
+        return float((got.double() - want).abs().max() / want.abs().max())
+
+    errors, classes = {}, {}
+    for name in ("u_hat_route", "folded_route"):
+        route = getattr(module, name)
+        with torch.inference_mode():
+            module.iter_routing = 2
+            _, _, first = route(u, 0)
+            module.iter_routing = 3
+            _, scores, second = route(u, 0)
+        errors[name] = {
+            "round 1": gap(first, first64),
+            "round 2": gap(second - first, _cap_round64(module, u, first)[0]),
+            "scores": gap(scores, _cap_round64(module, u, second)[1]),
+            "chained: logits after round 2": gap(second, first64 + second64),
+            "chained: scores": gap(scores, chained64)}
+        classes[name] = scores.argmax(1)
+        del scores
+        torch.cuda.empty_cache()
+    for what in errors["u_hat_route"]:
+        print(f"seed {seed} {what}: u_hat {errors['u_hat_route'][what]:.3g}, "
+              f"folded {errors['folded_route'][what]:.3g}")
+    folded, u_hat = errors["folded_route"], errors["u_hat_route"]
+    assert folded["round 1"] <= u_hat["round 1"]
+    assert folded["round 2"] <= u_hat["round 2"]
+    assert folded["scores"] <= max(u_hat["scores"], 4 * torch.finfo(torch.float32).eps)
+    if not near_tie(first64 + second64):
+        assert torch.equal(classes["folded_route"], classes["u_hat_route"])
