@@ -1,266 +1,107 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's main path on one NVIDIA GPU and check its kernels.
+"""Check the PyTorch port on one NVIDIA GPU: its main path, its other paths
+and its kernel against their plain versions and the CPU.
 
     python3 chip_smoke.py
 
-Needs one CUDA device and ``nvcc``; exits non-zero, printing no result,
-without them. Phases, one JSON line each:
+Needs one CUDA device and ``nvcc``; without them it exits 1 and prints no
+result. Each phase prints one JSON line; any failed check raises. Times,
+rates and idle shares of the port's paths live in ``portbench/`` (the
+benchmark's cells) and PERF.md: this script times only the kernel table and
+prints each phase's seconds. The scene is GRSS2013's size (349 x 1905, 144
+bands plus LiDAR, 15 classes) from the synthetic loader; every model runs at
+the full width of its published JSON (``configs/modelconfigs/``). A train
+CLI run over a plain ``Scene`` must launch the CUDA gather exactly once a
+step (at the step's batch) and once an eval batch; a sweep, once a band.
 
-1. ``device``: the card's name and power limit.
-2. ``build``: every kernel source built with ``nvcc`` (in parallel), with
-   ptxas's report of each kernel's registers, shared memory and spills.
-3. ``kernel_vs_plain``: the CUDA window gather held bit for bit against its
-   plain PyTorch version, k in {1, 3, 5, 7, 9}, C in {12, 65, 145, 360},
-   B in {1, 129, 30480}, with out-of-range and negative coordinates; then
-   C in {1, 2, 3, 5} at k in {1, 3, 5, 9} and B in {0, ..., 4, 129} (every
-   residue of B*k*k*C mod 4), and k = 9, C = 360, B = 73,700: 2,149,092,000
-   output floats (8.6 GB, the 64-bit index path), freed after.
-4. ``infer_all``: ``infer_for_classification --domain=all --device=cuda`` at
-   the full width of ``configs/modelconfigs/alg_param_hypelcnn.json`` over a
-   GRSS2013-size synthetic scene (349 x 1905, 144 bands plus LiDAR, 15
-   classes), random weights from a seed. The gather's launch count over that
-   run must equal the band count; the class map must equal the sweep's with
-   the plain gather; float32 logits on the card must agree with the CPU's on
-   a small batch; some convolution must have taken the GEMM (``conv2d``'s
-   two counts are printed). Then the sweep is timed.
-5. ``train``: ``train_for_classification --device=cuda`` at the same width,
-   published batch 48 and dropout 0.7, with rotation, reflection and spectral
-   augmentation, 300 steps with checkpoints every 200 into a fresh log dir.
-   The gather's launch count must equal the steps plus the eval batches;
-   losses finite and falling, test OA above 0.5; some convolution must
-   have taken the GEMM. Then the steady-state step
-   time (median of 3 runs of 25 steps after 20 warm-up steps), peak device
-   memory and the step's float32 bound.
-6. ``train_vs_cpu``: 3 steps from the same weights on the same batches,
-   dropout and augmentation off, on the card and on the CPU.
-7. ``resume``: the train CLI again into the same log dir with 400 steps: it
-   resumes at 300 and runs 100 steps.
-8. ``infer_trained``: the infer CLI with ``--domain=all`` and then
-   ``--domain=sample`` from the trained checkpoint.
-9. ``kernels``: each kernel's time at the main path's shapes (the sweep's
-   band, the training step's batch of 48, the eval drain's batch of 8192,
-   and the families' shapes below) beside its plain version, one PyTorch
-   library call and its bound.
-10. ``profile``: device time by kernel over one traced sweep, and the
-    device's idle share.
-11. ``profile_train``: the same over 10 traced training steps.
+- ``device``, ``build``: the card's name and power limit; every kernel
+  source built with ``nvcc``, with ptxas's registers, shared memory, spills.
+- ``kernel_vs_plain``: the CUDA window gather bit for bit against its plain
+  version over k, C and B (out-of-range and negative coordinates, every
+  residue of B*k*k*C mod 4, B = 0, an 8.6 GB output past 2^31 floats).
+- ``dist_world1``: the train CLI (HYPELCNN, batch 48, 50 steps) in a plain
+  process and in one NCCL rank under torchrun, deterministic algorithms:
+  losses and final weights equal bit for bit, exact launches, and the traced
+  steps' kernels differing only by the collective's.
+- ``infer_all``: the infer CLI ``--domain all`` on random HYPELCNN weights:
+  one launch a band, both TIFFs, its map equal to the sweep's with the CUDA
+  and with the plain gather, card logits within 1e-4 of the CPU's, some
+  convolution on ``conv2d``'s GEMM route.
+- ``train``: the train CLI (batch 48, dropout 0.7, rotation, reflection and
+  spectral augmentation, 300 steps, checkpoints every 200): exact launches,
+  a falling loss, test OA above 0.5, orbax checkpoints, the GEMM route; its
+  final state saved again and read back bit for bit. ``train_vs_cpu``: 3
+  steps from one init, card against CPU. ``resume``: the CLI to 400 resumes
+  at 300, and its saved step is its final state. ``infer_trained``: the
+  infer CLI ``all`` and ``sample`` (one launch per 4,096 targets) agree.
+- ``family_concnn`` (k = 5, batch 10), ``family_dualcnn`` (k = 5, batch 48),
+  ``family_cap`` (k = 3, batch 16): the train CLI's 300 steps (exact
+  launches, a falling loss, test OA above 0.2); 3 steps card against CPU
+  (step 1 within 1e-4); the infer CLI ``all`` (its map the plain gather's)
+  and ``sample`` (equal to ``all`` but at pixels whose top two logits tie to
+  1e-4; not for CAP, whose batch statistics and routing couple the batch);
+  a sweep through the API equal to the plain gather's, CAP's on the folded
+  route only; DUALCNN's state saved and read back bit for bit.
+- ``loader_grss2013``, ``loader_grss2018``, ``loader_gulfport``,
+  ``loader_avon``: each loader's own file layout written full size
+  (``data.layouts``), read back bit for bit against the scene of the arrays
+  written, then the train CLI: a loss below the CLI's first step's, an
+  accuracy gate, exact launches (none for DFC2018's dual scene, whose dual
+  gather equals the host windows); GRSS2013's infer map equals the in-memory
+  scene's, DFC2018's ``gt`` map the GT written; GULFPORT's MIXED scene keeps
+  2 scenes on the device and shadows 0.70 to 0.80 of its draws.
+- ``gan_train``: cycle_gan through its CLI on the GRSS2013 layout (batch 32,
+  250 steps, validation and checkpoints every 125): the pairs on the card,
+  finite losses and divergences, the snapshots and states as orbax, the
+  state restored and re-saved bit for bit, a rerun resuming at 250.
+  ``gan_families``: the seven families' finite losses, 2 steps card against
+  CPU (step 1 within 1e-4), dcl_cycle_gan equal to dcl_gan bit for bit.
+  ``gan_infer``: finite divergences. ``gan_infer_image``: the translated
+  TIFFs change only inside the mask; conv and Toeplitz generators on the
+  card within 1e-5 of the CPU; the Toeplitz one's ``translate_scene`` of the
+  whole scene within 1e-5 of its ``translate``. ``gan_augmented``: the train CLI with
+  cycle_gan and simple shadow augmentation: exact launches, 0.25 to 0.35 of
+  the windows shadowed, a falling loss, test OA at least 0.9.
+- ``search``: both CLIs' hyperparameter search (trials stored and reloaded,
+  finite, exact launches). ``records``: the ``.npz`` cache and the
+  ``.tfrecord`` set read back bit for bit against ``InMemoryImporter``, and
+  training from the cache with no gather. ``tf_checkpoint``: the committed
+  TF generator at GRSS2013's declared path, card within 1e-5 of the CPU,
+  augmented training. ``jax_log_dir``: the JAX package's committed orbax
+  checkpoints read, re-saved by the port's writer equal to JAX's, the infer
+  CLI's map JAX's but at its ties, the train CLI resuming JAX's step, JAX's
+  cycle_gan translation to 1e-5.
+- ``dist_two_ranks_one_card``: two gloo ranks on the card (train and infer
+  CLIs, the trainer's first step, CAP's sweep, cycle_gan's steps) against one
+  rank; one log dir by the chief; each rank's exact launches; the two-rank
+  checkpoint resumed in one rank within 1e-4 of an uninterrupted run.
+  ``tp_two_ranks_one_card`` and ``tp_data_model_four_ranks``: the (1, 2) and
+  (2, 2) meshes, JAX's sharded kernels, losses against one rank, the (1, 2)
+  checkpoint resumed in one rank (drain and sweep equal but at ties, 5 steps
+  within 1e-3). ``search_two_ranks``: the search under two ranks, the
+  chief's study alone. The ranks are this script again
+  (``chip_smoke.py --rank-task SPEC.json``), started by torchrun.
+- ``bf16``: the train CLI in bfloat16 (exact launches, a loss below its
+  first step's), a bfloat16 sweep agreeing with float32 on 0.98 of the
+  pixels, CONCNN and DUALCNN 3 steps card against CPU within 1e-3.
+- ``utilities``: the five analysis tools on the card against the CPU.
+  ``classic_ml``: the classic-ML CLI's exact launches by batch, windows and
+  map equal to the plain gather's, its first trees grown again on the CPU
+  node for node, the SVM grid's best cell equal on the card and the CPU.
+- ``fused_levels``: fused and unfused multi-scale levels give the same
+  logits (HYPELCNN and DUALCNN, 1e-4); DUALCNN's fused sweep equals the
+  unfused but at top-two ties, and 5 training steps from one init keep step
+  1's loss within 1e-4 and every loss finite.
+- ``kernels``: the kernel table (PERF.md section 6). Each main-path shape
+  of the gather (bands, steps, drains, a rank's shares, the families',
+  loaders' and classic ML's shapes, one window) bit for bit against the
+  plain version, then timed with CUDA events beside the plain version and
+  one library call; its launches counted over the runs above (none at
+  B = 1); its bound is the bytes it must move at the card's HBM bandwidth
+  from ``portbench/counts.py`` (null for a card not there). A
+  ``launch_floor`` line times an empty kernel.
 
-Between 8 and 9, each other classifier family at the full width of its
-published JSON, on the same scene (``family_concnn``: k = 5, batch 10;
-``family_dualcnn``: k = 5, batch 48; ``family_cap``: k = 3, batch 16):
-
-- the train CLI for its 300 steps with the ``train`` phase's augmentation; the
-  gather's launches must equal the steps plus the eval batches, counted by
-  batch size; losses finite and falling; test OA above 0.2; ``conv2d``'s
-  counts of the CLI runs printed, and for DUALCNN some GEMM in each;
-- 3 steps card against CPU from the same weights, dropout and augmentation
-  off; step 1 within 1e-4 relative;
-- the infer CLI with ``--domain all`` (one launch a band; the class map
-  equals the sweep's with the plain gather on the card) and ``--domain
-  sample`` (one launch per 4,096 targets; the map equals ``all`` but at
-  pixels whose two top logits tie to 1e-4, at most 1e-4 of the scene, since
-  cuDNN computes other batch sizes with other algorithms; not checked for
-  CAP, whose batch statistics and routing depend on the batch);
-- the step time (median of 3 runs of 15 steps after 10 warm-up steps), the
-  sweep time (once, after the infer CLI's sweep of the same shapes; its map
-  equals the plain gather's), peak device memory of each, device time by
-  kernel and the idle share over 10 traced steps and one traced sweep, and
-  the sweep's
-  bound, the larger of its float32 FLOP and the bytes it must move (for CAP
-  also the traffic of this implementation's prediction vectors); DUALCNN's
-  whole state (7,783,240 parameters) saved once as an orbax step, timed,
-  and read back bit for bit.
-
-Then the four loader phases. Each writes a dataset directory in its
-loader's own file layout with ``hypelcnn_tpu_torch.data.layouts`` (the
-synthetic generator's content in the real files' dtypes), reads it back
-through the loader, checks that the padded, normalized host arrays equal bit
-for bit the scene built from the arrays written, runs the train CLI with
-HYPELCNN at full width, batch 48, and checks a finite loss that falls below
-the first step's, an accuracy gate and, for a plain ``Scene``, the CUDA
-gather's launches (one a step, one an eval batch). Each prints its write,
-read and upload times and bytes, the scene's device bytes, CLI and step
-times and peak memory:
-
-- ``loader_grss2013``: GRSS2013 at 349 x 1905 (144-page uint16 CASI, float32
-  LiDAR, TR/VA, shadow map), 100 steps, test OA above 0.5; then the infer
-  CLI's ``all`` map equals the sweep of the same weights over the ``Scene``
-  built in memory;
-- ``loader_grss2018``: DFC2018's layout (CASI 1202 x 4172 x 50, LiDAR
-  2404 x 8344 with values above 300, GT 1202 x 4768 with 10% labelled), k = 3,
-  100 steps; ``gather_patches_dual`` on the card equals
-  ``DualResScene.get_data_point`` for 4,096 targets; no CUDA-gather launch
-  (a dual scene is not a plain one); test OA above 0.5; ``--domain gt``
-  rasterizes the GT written;
-- ``loader_gulfport``: MUUFL Gulfport at 325 x 220 x 64 through
-  ``GULFPORTALTDataLoader`` (ORIGINAL; the gather at C = 65), 100 steps,
-  validation OA above 0.5 (the test split is empty); then a trainer on the
-  MIXED ``MultiScene`` for 50 steps: 2 scenes on the device, not 4, and of
-  10,240 member draws 0.70 to 0.80 shadowed, each window its member's;
-- ``loader_avon``: AVON's layout at 500 x 300 x 360 (stored 360 x 300 x 610,
-  four 1-bit BMP masks), 100 steps, no LiDAR (C = 360), test OA above 0.75.
-
-Then the five GAN phases, on the GRSS2013 layout ``loader_grss2013`` wrote
-(349 x 1905, 144 CASI bands):
-
-- ``gan_train``: ``gan_train_for_shadow`` (cycle_gan, random pairing, batch
-  32) for 250 steps, validation and checkpoints every 125: both pair
-  arrays on the card at the size the shadow map implies, a finite generator
-  loss at each cadence, 2 points in each ``best_ratio_*.json``,
-  ``ckpt_params_125``, ``ckpt_params_250``, ``gan_params`` and 2 full
-  states; the saved state restores bit for bit and a rerun to 300 resumes
-  at 250. Then the step through the API (median of 3 runs of 25 steps),
-  its launches and idle share over 10 traced steps, the CLI's seconds and
-  peak memory;
-- ``gan_families``: each of the seven families for 10 steps with finite
-  losses, its step (median of 3 runs of 5), launches and idle share over 5
-  traced steps, and 2
-  steps card against CPU from one init on the same batches and pool draws
-  (step 1 within 1e-4); dcl_cycle_gan equal to dcl_gan bit for bit under
-  cuDNN's deterministic algorithms;
-- ``gan_infer``: ``gan_infer_for_shadow`` on ``gan_params`` at 6,000
-  samples, both divergences finite;
-- ``gan_infer_image``: ``gan_infer_image_for_shadow`` untranslated, shadow,
-  deshadow and shadow with ``--convert_all``: 349 x 1905 x 144 TIFFs in the
-  loader's dtype, pixels outside the mask those of the untranslated output,
-  4,096 translated pixels equal to the CPU port's to 1e-5 (conv and Toeplitz
-  generators), and ``translate_scene`` timed both ways beside its bound;
-- ``gan_augmented``: ``gan_params`` installed at GRSS2013's declared
-  cycle_gan path, the train CLI at HYPELCNN's full width, batch 48, with
-  ``--augment_data_with_shadow cycle_gan`` at threshold 0.3 for 100 steps,
-  then ``simple`` for 50: the gather's exact launches, 0.25 to 0.35 of the
-  windows shadowed, a loss below the first step's, test OA at least 0.9, and
-  the step with and without the shadow op.
-
-Then three phases on the same layout:
-
-- ``search``: in a working directory of its own, the train CLI with
-  ``--flag_config_file_opt`` (the published HYPELCNN JSON pinned at full
-  width, batch 48, but a log-uniform learning rate from 1e-4 to 1e-3), 2
-  trials of 50 steps, then a rerun with 1 trial that loads both:
-  ``classification_opt.db`` holds trials 0 to 2, each trial's loss is
-  finite and below the first step's, the gather's launches are exact by
-  batch size; then the GAN CLI with ``configs/gan/cycle_gan_flags_opt.json``,
-  2 trials of 50 steps: ``gan_shadow_opt.db`` holds 2 trials, finite;
-- ``records``: ``record_writer`` writes the splits at k = 3 as the ``.npz``
-  cache and as the ``.tfrecord`` set, ``RecordImporter`` reads both back
-  bit for bit ``InMemoryImporter``'s patches (the records' labels too, their
-  (x, y) zero), then the train CLI from the cache for 50 steps: no gather
-  launch, a falling loss; bytes, write and read seconds, the step;
-- ``tf_checkpoint``: the committed TF fixture
-  (``tests/torch_fixtures/tf_cycle_gan_144``) at GRSS2013's declared
-  ``model.ckpt-5000``: 1,024 pixels shadow and de-shadow on the card as on
-  the CPU to 1e-5; the train CLI with ``--augment_data_with_shadow
-  cycle_gan`` for 50 steps: 0.25 to 0.35 of the windows shadowed, a falling
-  loss, the gather's launches; the reader's seconds, the step beside
-  ``gan_augmented``'s.
-- ``jax_log_dir``: the committed orbax checkpoints of the JAX package
-  (``tests/torch_fixtures/jax_hypelcnn_480``, HYPELCNN at the published
-  width after 200 JAX steps, and ``jax_cycle_gan_144``): their decode
-  seconds and bytes; the infer CLI ``--domain all`` on a log dir holding
-  the JAX step (22 launches, JAX's map but at its top-two ties); the train
-  CLI resuming it for 50 steps (the gather's exact launches) and its first
-  resumed step on the card and the CPU within 1e-4; the JAX cycle_gan at
-  GRSS2013's declared path: the creator built, JAX's translation of 256
-  pixels matched to 1e-5, and 30 augmented train CLI steps through the gather.
-
-Six phases of the multi-device paths and bfloat16, ``dist_world1`` right
-after ``kernel_vs_plain`` (it needs nothing the other phases make), the
-other five after ``tf_checkpoint``:
-
-- ``dist_world1``: the train CLI at HYPELCNN's full width (batch 48, 50
-  steps, no augmentation) in one plain process and under ``torchrun
-  --nproc_per_node=1`` on NCCL, both under deterministic algorithms: the
-  logged losses and the final weights equal bit for bit, the gather's exact
-  launches, and each step's time, whose kernels may differ only by
-  collectives (a mesh of one rank runs none);
-- ``dist_two_ranks_one_card``: two ranks on the one H100 over gloo (NCCL
-  refuses two ranks on one card): the train CLI (global batch 48, 50
-  steps, augmentation, checkpoints every 10), its step 1 within 1e-4 of one
-  rank's and its loss falling, one log dir written by the chief alone, each
-  rank's gather launches its 24-window steps plus its eval-drain shares;
-  the infer CLI ``--domain all`` from that checkpoint, CAP's sweep (trained
-  20 steps in one rank) and cycle_gan's 30 steps on the GRSS2013 layout's
-  pairs (batch 32) against one rank (maps equal but for top-two ties,
-  losses within 1e-4); the two-rank checkpoint at step 10 resumed in one
-  rank to step 20 within 1e-4 of an uninterrupted one-rank run; the step
-  times (two ranks sharing one card through gloo's host staging: not a
-  measure of scaling);
-- ``tp_two_ranks_one_card`` (tensor parallelism, the mesh's model axis): a
-  (1, 2) mesh over gloo, HYPELCNN at
-  ``configs/modelconfigs/alg_param_hypelcnn_1200.json`` (the width the
-  model axis was written for), batch 48, augmentation on, through the
-  trainer: 10 steps, step 1 within 1e-4 of one rank's on the card from the
-  same init; the 13 kernels JAX's rule shards; the full-width checkpoint at
-  step 10 resumed in one rank, whose test drain and 3-band sweep (a
-  48-row scene of the same width) on those weights equal the ranks' but
-  for top-two ties, and whose next 5 steps stay within 1e-3 of an
-  uninterrupted one-rank run; each rank's step time, channel gathers and
-  input-gradient sums a step, peak memory, and its exact gather launches;
-- ``tp_data_model_four_ranks``: a (2, 2) mesh, four ranks over gloo,
-  HYPELCNN at 480 width, global batch 48 (24 windows a data index): 8
-  sharded kernels, the losses against one rank (step 1 within 1e-4), each
-  rank's step time and collectives;
-- ``search_two_ranks``: the train CLI's search under torchrun on two
-  ranks, 2 trials of 20 steps: both ranks run the trials the chief drew, in
-  the same log dirs; only the chief opens the study, whose file alone is in
-  the working directory; each rank's exact gather launches;
-- ``bf16``: HYPELCNN's published JSON with ``compute_dtype: "bfloat16"``
-  through the train CLI (100 steps, the ``train`` phase's augmentation):
-  exact launches, a loss below step 1's; the ``train`` phase's checkpoint
-  swept in bfloat16 against float32 (at least 0.98 of the pixels agree, the
-  CPU test's threshold); the bfloat16 step beside the float32 one; CONCNN
-  and DUALCNN 3 steps card against CPU in bfloat16 (each step's loss
-  within 1e-3).
-
-The ranks are this script again, ``chip_smoke.py --rank-task SPEC.json``,
-which torchrun starts.
-
-Two phases of the offline tooling, after ``bf16`` (the two-rank phase
-shares the card's memory with this process, so it runs before them):
-
-- ``utilities``: the five analysis tools with ``--device=cuda`` and then
-  ``--device=cpu`` on the same inputs, each card result held against the
-  CPU's: ``lidar_matcher`` on the GRSS2013 and GRSS2018 layouts (the
-  corners equal), ``measure_targets_shadow_ratio`` (random pairing) and
-  ``remove_test_targets_from_shadow`` on the GRSS2013 layout (the ratio's
-  moments within 1e-6 relative, the shadow maps equal),
-  ``nn_layer_activation_graph`` on the ``train`` phase's checkpoint (the
-  histograms within 1e-4 of each tap's largest magnitude), and
-  ``reveal_shadow_targets`` on a copy of the GULFPORT layout with no
-  building shadow on its last row or column (the shadow map and GT equal,
-  the corrected HSI within 1e-6); each tool's seconds, and the figures not
-  written for want of matplotlib;
-- ``classic_ml``: ``classic_ml_trainer --fullscene --batch_size=65536
-  --neighborhood=0`` on the GRSS2013-size synthetic scene: the gather's
-  launches exactly by batch size (the training split, the validation split,
-  10 full-scene batches and the last), each batch's windows bit for bit the
-  plain gather's and the full-scene map the plain windows' map, validation
-  OA above chance; the forest grown again on the CPU from the same
-  ``np.random`` state equal node for node, its validation predictions equal;
-  the fit, predict and full-scene seconds. Then ``--hyperparamopt`` (the
-  full 13 x 13 grid) on a 3-class 40 x 80 scene on the card and on the CPU:
-  the same best cell, every cell's score within 0.01.
-
-Then ``fused_levels``: fused and unfused multi-scale levels give the same
-logits on 256 windows at full width, HYPELCNN and DUALCNN, and DUALCNN's
-sweep and step are timed both ways; and the ``kernels`` line gains the k = 5
-band, each family's training step, the GULFPORT and AVON training steps
-(C = 65 and 360), a single window and the classic-ML CLI's k = 1 shapes
-(its training and validation splits and a full-scene batch); the training
-step's row counts the
-GAN-augmented, search, TF-checkpoint, world-1, resume and bfloat16 runs'
-steps too, and the eval row their drains; three rows give a rank's halves
-of the training step, of an eval batch and of a sweep band (with the
-search under two ranks), four the tensor-parallel ranks' shapes (a (1, 2)
-rank's whole step, test drain and band, a (2, 2) rank's half step), and
-one a single window (the smallest launch, with the main path's launches at
-B = 1, which must be none). Before the rows, a ``launch_floor`` line times
-an empty kernel (``torch.cuda._sleep(0)``) as the rows are timed, and each
-row carries that floor as ``floor_ms``. A last line before the result gives
-each phase's seconds.
-
-The last line is ``{"ok": true, "device": {...}}``. Any failure raises.
+Then a line of each phase's seconds and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -364,6 +205,7 @@ from hypelcnn_tpu_torch.utils.tf_checkpoint_import import (
     load_tf_checkpoint_values,
 )
 from hypelcnn_tpu_torch.utils.tiff_io import imread, imwrite, read_tags
+from portbench.counts import peak
 
 ROOT = Path(__file__).resolve().parent
 SOURCES = ["window_gather"]
@@ -372,14 +214,12 @@ HEIGHT, WIDTH, CLASSES, NEIGHBORHOOD = 349, 1905, 15, 1
 BATCH_ROWS = 16
 PARAMS_PATH = ROOT / "configs" / "modelconfigs" / "alg_param_hypelcnn.json"
 SEED = 1234
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
-FP32_FLOP_PER_S = 67e12  # H100 SXM float32 outside the tensor cores, same sheet
 TRAIN_BATCH, TRAIN_STEPS, RESUME_STEPS, CHECKPOINT_EVERY = 48, 300, 400, 200
-TRAIN_TIMED_STEPS, AUGMENTED_TIMED_STEPS = 25, 15  # steady-state runs: 3 of each, timed
 TRAIN_RATIO, TEST_RATIO = 0.10, 0.05
 TEST_CADENCE, EVAL_BATCH, SAMPLE_BATCH = 100, 8192, 4096
 SPECTRAL = 0.05
 QUEUE_SLEEP_CYCLES = 100_000_000  # ~50 ms at the H100's clocks: longer than queueing 21 calls
+KERNEL_CALLS = 21  # calls a kernel row times (the band row 20); the tables hold as many steps
 CONFIGS = ROOT / "configs" / "modelconfigs"
 
 
@@ -405,7 +245,6 @@ FAMILIES = [
     Family("family_cap", "CAPModel", CONFIGS / "alg_param_capn.json", 1, 16, 300, {}),
 ]
 FAMILY_OA = 0.2  # chance is 1/15
-FAMILY_TIMED_STEPS, FAMILY_TRACED_STEPS = 15, 10  # a family's step: 3 timed runs, then traced
 # the loader phases: the train CLI at HYPELCNN's full width on each layout
 LOADER_BATCH, LOADER_STEPS, AVON_STEPS, MIXED_STEPS = 48, 100, 100, 50
 LOADER_TRAIN_RATIO, LOADER_TEST_RATIO = 0.1, 0.05
@@ -413,10 +252,9 @@ MEMBER_DRAWS, DUAL_CHECKS = 10240, 4096
 AVON_SIZE = {"height": 500, "width": 300}  # AVON's size is not published; this is ours
 LOADER_OA = {"GRSS2013DataLoader": 0.5, "GRSS2018DataLoader": 0.5,
              "GULFPORTALTDataLoader": 0.5, "AVONDataLoader": 0.75}  # chance 1/15, 1/20, 1/11, 1/2
-FUSED_PAIRS, FUSED_RUN_STEPS, FUSED_TRACED = 3, 25, 10  # DUALCNN step pairs, unfused against fused
 # the GAN phases, on the GRSS2013 layout (144 CASI bands)
 GAN_BANDS, GAN_BATCH, GAN_STEPS, GAN_VALIDATION, GAN_RESUME_STEPS = 144, 32, 250, 125, 300
-GAN_TIMED_STEPS, GAN_FAMILY_STEPS, TRANSLATE_CHECKS = 25, 10, 4096
+GAN_FAMILY_STEPS, TRANSLATE_CHECKS = 10, 4096
 GAN_CARD_VS_CPU_STEPS = 2  # a family's steps on the card and on the CPU; step 1 is held
 GAN_FAMILIES = ["cycle_gan", "gan_x2y", "gan_y2x", "cut_x2y", "cut_y2x", "dcl_gan",
                 "dcl_cycle_gan"]
@@ -433,24 +271,26 @@ TF_TRANSLATE_CHECKS = 1024
 JAX_FIXTURE = ROOT / "tests" / "torch_fixtures" / "jax_hypelcnn_480"
 JAX_GAN_FIXTURE = ROOT / "tests" / "torch_fixtures" / "jax_cycle_gan_144"
 JAX_RESUMED_STEPS, JAX_AUGMENTED_STEPS = 50, 30
-PROFILED_STEPS = 10  # profile_train's traced steps
 # the multi-device phases: one rank plainly and on NCCL; two ranks on the one card
 DIST_WORLD1_STEPS, DIST_STEPS, DIST_CHECKPOINT_EVERY, DIST_RESUME_STEPS = 50, 50, 10, 20
-DIST_GAN_STEPS, DIST_CAP_STEPS, DIST_TIMED_STEPS, DIST_PROFILED_STEPS = 30, 20, 10, 3
+DIST_GAN_STEPS, DIST_CAP_STEPS, DIST_TRACED_STEPS = 30, 20, 3
 # tensor parallelism, two and four ranks on the one card: HYPELCNN-1200 on a
 # (1, 2) mesh (13 kernels sharded, JAX's rule) with its checkpoint, test drain and
 # a sweep of 3 bands of a 48-row scene of the same width; HYPELCNN-480 on (2, 2)
-# (8 sharded); then the train CLI's search under two ranks
+# (8 sharded); then the train CLI's search under two ranks. A rank's losses are
+# read over the first steps, its model-axis collectives counted over the next
 TP_PARAMS_PATH = CONFIGS / "alg_param_hypelcnn_1200.json"
-TP_STEPS, TP_TIMED_STEPS, TP_RESUME_STEPS, TP_SHARDED_KERNELS = 5, 5, 5, 13
+TP_STEPS, TP_COUNTED_STEPS, TP_RESUME_STEPS, TP_SHARDED_KERNELS = 5, 5, 5, 13
 TP_SWEEP_SPEC, TP_SWEEP_BANDS = "synthetic://?h=48&w=1905&bands=144&classes=15", 3
 TP_DRAIN_DIFFER = 3  # of the 3,325 test windows: top-two ties, about 1e-3
-TP4_STEPS, TP4_TIMED_STEPS, TP4_SHARDED_KERNELS = 5, 5, 8
+TP4_STEPS, TP4_COUNTED_STEPS, TP4_SHARDED_KERNELS = 5, 5, 8
 SEARCH_RANK_STEPS = 20
 # the bfloat16 phase; the sweep's threshold is tests/test_torch_bf16.py's (0.9935
 # measured on the CPU); the card-against-CPU loss limit is twice the largest gap
 # read on the card (4.7e-4, CONCNN's third step)
-BF16_STEPS, BF16_TIMED_STEPS, BF16_SWEEP_AGREEMENT, BF16_CARD_VS_CPU = 100, 30, 0.98, 1e-3
+BF16_STEPS, BF16_SWEEP_AGREEMENT, BF16_CARD_VS_CPU = 100, 0.98, 1e-3
+# the fused_levels phase: DUALCNN's training steps fused and unfused from one init
+FUSED_STEPS = 5
 # the classic-ML phase: the GRSS2013-size scene with noise over the class
 # signatures, so the forest's trees run to ~10k nodes and 28 levels (the
 # default noise separates the classes on one band: 32 nodes a tree); the
@@ -501,26 +341,16 @@ def _check_orbax(*paths: Path) -> None:
               f"{path} is not an orbax checkpoint, or holds a .pt file")
 
 
-def _timed_save(state, log_dir: Path) -> dict:
+def _save_read_back(state, log_dir: Path) -> dict:
     """``save_checkpoint`` of ``state`` (a classifier's or a GAN's) into a
-    fresh ``log_dir``: the seconds of its tree (the card's tensors fetched
-    and bridged) and of the write, the files' and the arrays' bytes; the step
-    reads back bit for bit."""
-    torch.cuda.synchronize()
-    start = time.perf_counter()
+    fresh ``log_dir``: the step reads back bit for bit; the files' and the
+    arrays' bytes."""
     tree = state.checkpoint_tree()
-    tree_seconds = time.perf_counter() - start
-    start = time.perf_counter()
     step_dir = Path(save_checkpoint(str(log_dir), tree))
-    save_seconds = time.perf_counter() - start
-    start = time.perf_counter()
     read = read_orbax(str(step_dir))
-    read_seconds = time.perf_counter() - start
     _check_orbax(step_dir)
     check(_same_tree(tree, read), f"{step_dir} does not read back bit for bit")
-    return {"tree_seconds": tree_seconds, "save_seconds": save_seconds,
-            "read_seconds": read_seconds, "file_bytes": _file_bytes(step_dir),
-            "array_bytes": tree_bytes(read)}
+    return {"file_bytes": _file_bytes(step_dir), "array_bytes": tree_bytes(read)}
 
 
 def _save_module(log_dir: Path, step: int, module, params: dict) -> None:
@@ -568,14 +398,12 @@ def phase_device() -> str:
 
 
 def phase_build() -> None:
-    start = time.perf_counter()
     with ThreadPoolExecutor(max_workers=len(SOURCES)) as pool:
         paths = list(pool.map(build.build, SOURCES))
     for name in SOURCES:
         build.load(name)
     # each kernel's registers, shared memory and spills, as ptxas reported them
-    emit({"phase": "build", "seconds": time.perf_counter() - start,
-          "libraries": [str(p.relative_to(ROOT)) for p in paths],
+    emit({"phase": "build", "libraries": [str(p.relative_to(ROOT)) for p in paths],
           "ptxas": {name: build.ptxas_report(name) for name in SOURCES}})
 
 
@@ -672,19 +500,6 @@ def _random_module(params, data_shape, patches: torch.Tensor, model: str = "HYPE
     return module.eval()
 
 
-def _timed_sweeps(fn, runs: int = 3, warm_up: bool = True) -> list:
-    if warm_up:
-        fn()
-    times = []
-    for _ in range(runs):
-        torch.cuda.synchronize()
-        start = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - start)
-    return times
-
-
 def phase_infer_all(device, work: Path):
     params = load_algorithm_params(HYPELCNNModel().default_params(), str(PARAMS_PATH))
     scene = SyntheticDataLoader(SPEC).load_data(NEIGHBORHOOD, True)
@@ -698,19 +513,15 @@ def phase_infer_all(device, work: Path):
     _save_module(log_dir, 1, module, params)
     n_bands = (HEIGHT + BATCH_ROWS - 1) // BATCH_ROWS
 
-    torch.cuda.reset_peak_memory_stats()
     reset_launches()
     reset_conv_counts()
-    start = time.perf_counter()
     infer_for_classification.main([
         "--loader_name=SyntheticDataLoader", f"--path={SPEC}", f"--neighborhood={NEIGHBORHOOD}",
         f"--algorithm_param_path={PARAMS_PATH}", f"--base_log_path={log_dir}",
         f"--output_path={out_dir}", "--domain=all", "--device=cuda"])
-    cli_seconds = time.perf_counter() - start
     launches = window_gather_cuda.launches
     conv_routes = _conv_routes("HYPELCNNModel", "sweep")
     _note_main_path()
-    peak_bytes = torch.cuda.max_memory_allocated()
     check(launches == n_bands,
           f"window_gather launched {launches} times over the sweep, expected {n_bands}")
 
@@ -742,25 +553,12 @@ def phase_infer_all(device, work: Path):
     check(bool(torch.isfinite(gpu_logits).all()), "non-finite logits on the card")
     logit_err = float((gpu_logits - cpu_logits).abs().max() / cpu_logits.abs().max().clamp(min=1))
     check(logit_err < 1e-4, f"card and CPU logits differ by {logit_err} (relative)")
-
-    sweep = _timed_sweeps(lambda: predict_full_scene(module, scene, device=device), runs=1)
-    plain_sweep = _timed_sweeps(lambda: predict_full_scene(module, scene, device=device,
-                                                          gather=gather_patches_torch))
-    seconds = statistics.median(sweep)
-    # multiply-adds per pixel of the eval forward, SAME-padded taps counted
-    macs = _forward_macs(module, data_shape, device)
-    sweep_flop = 2 * macs * HEIGHT * WIDTH
     emit({"phase": "infer_all", "scene": [HEIGHT, WIDTH, data_shape[2]], "patch": data_shape[0],
           "bands": n_bands, "windows": HEIGHT * WIDTH, "gather_launches": launches,
-          "conv_routes": conv_routes, "cli_seconds": cli_seconds, "sweep_seconds": seconds,
-          "sweep_runs": sweep,
-          "pixels_per_second": HEIGHT * WIDTH / seconds,
-          "plain_gather_sweep_seconds": statistics.median(plain_sweep),
-          "flop_per_pixel": 2 * macs, "sweep_bound_seconds": sweep_flop / FP32_FLOP_PER_S,
-          "classes_in_map": classes_in_map, "logit_rel_err_vs_cpu": logit_err,
-          "peak_device_bytes": peak_bytes,
+          "conv_routes": conv_routes, "classes_in_map": classes_in_map,
+          "logit_rel_err_vs_cpu": logit_err,
           "parameters": sum(p.numel() for p in module.parameters())})
-    return scene, module, launches, macs
+    return scene, launches
 
 
 def _train_args(log_root: Path, steps: int, family: Family = HYPELCNN) -> list:
@@ -838,31 +636,18 @@ def _trainer(data, params, device, augmentation=None, model="HYPELCNNModel"
         data_shape=data.data_shape, augmentation_info=augmentation, device=device)
 
 
-def _timed_steps(trainer, state, tables, start: int, count: int) -> float:
-    torch.cuda.synchronize()
-    begin = time.perf_counter()
-    for step in range(start, start + count):
-        trainer.train_step(state, tables, step)
-    torch.cuda.synchronize()
-    return time.perf_counter() - begin
-
-
-def phase_train(device, work: Path, data, macs: int) -> dict:
+def phase_train(device, work: Path, data) -> dict:
     params = {**load_algorithm_params(HYPELCNNModel().default_params(), str(PARAMS_PATH)),
               "batch_size": TRAIN_BATCH}
     counts = {split: data.targets(split).shape[0] for split in ("training", "test", "validation")}
     log_root = work / "train_log"
 
-    torch.cuda.reset_peak_memory_stats()
     reset_launches()
     reset_conv_counts()
-    start = time.perf_counter()
     result, _ = _run_train_cli(_train_args(log_root, TRAIN_STEPS))
-    cli_seconds = time.perf_counter() - start
     launches = window_gather_cuda.launches
     conv_routes = _conv_routes("HYPELCNNModel", "training")
     by_batch = _note_main_path()
-    cli_peak_bytes = torch.cuda.max_memory_allocated()
     (log_dir,) = [p for p in log_root.iterdir() if p.is_dir()]
     losses = _logged_losses(log_dir)
     gather = _check_launches("train", by_batch, launches, counts, TRAIN_STEPS, TRAIN_BATCH)
@@ -875,34 +660,18 @@ def phase_train(device, work: Path, data, macs: int) -> dict:
           f"checkpoints at {saved}")
     _check_orbax(*(log_dir / "checkpoints" / str(s) for s in saved))
 
-    # steady state, through the trainer's own step, on the CLI's configuration
+    # the trainer of the CLI's configuration, whose tables the kernel rows read
     trainer = _trainer(data, params, device, _augmentation())
-    state = trainer.init_state()
-    tables = trainer.training_tables(20 + 3 * TRAIN_TIMED_STEPS + 2 * PROFILED_STEPS,
-                                     TRAIN_BATCH)
-    torch.cuda.reset_peak_memory_stats()
-    _timed_steps(trainer, state, tables, 0, 20)
-    runs = [_timed_steps(trainer, state, tables, 20 + TRAIN_TIMED_STEPS * i, TRAIN_TIMED_STEPS)
-            / TRAIN_TIMED_STEPS for i in range(3)]
-    step_seconds = statistics.median(runs)
-    checkpoint = _timed_save(state, work / "train_saved")
-    step_flop = 3 * 2 * macs * TRAIN_BATCH  # forward + backward ~ 3 forwards
+    tables = trainer.training_tables(KERNEL_CALLS, TRAIN_BATCH)
+    checkpoint = _save_read_back(result.final_state, work / "train_saved")
     emit({"phase": "train", "steps": TRAIN_STEPS, "batch": TRAIN_BATCH, "targets": counts, **gather,
           "conv_routes": conv_routes,
           "gather_launches_by_batch": {str(b): n for b, n in sorted(by_batch.items())},
           "logged_losses": losses, "test_oa": result.test_accuracy,
-          "checkpoints": saved, "cli_seconds": cli_seconds,
-          "step_seconds": step_seconds, "step_runs": runs,
-          "patches_per_second": TRAIN_BATCH / step_seconds,
-          "cli_peak_device_bytes": cli_peak_bytes,
-          "steady_peak_device_bytes": torch.cuda.max_memory_allocated(),
-          "flop_per_step": step_flop, "step_bound_seconds": step_flop / FP32_FLOP_PER_S,
-          "checkpoint": checkpoint,
-          "parameters": sum(p.numel() for p in state.module.parameters())})
+          "checkpoints": saved, "checkpoint": checkpoint,
+          "parameters": sum(p.numel() for p in result.final_state.module.parameters())})
     return {"log_root": log_root, "log_dir": log_dir, "launches": gather["gather_launches"],
-            "trainer": trainer, "state": state, "tables": tables,
-            "next_step": 20 + 3 * TRAIN_TIMED_STEPS,
-            "params": params}
+            "trainer": trainer, "tables": tables, "params": params}
 
 
 def _card_vs_cpu(device, data, params, family: Family, steps: int,
@@ -990,37 +759,6 @@ def phase_infer_trained(device, work: Path, train) -> None:
           "agreement_with_truth": float((maps["all"] == truth).mean())})
 
 
-def _forward_macs(module, data_shape, device) -> int:
-    """Multiply-adds of one window's eval forward: every convolution's
-    output element times its kernel's taps, every dense layer's weights
-    (forward hooks), and CAP's capsule transform and routing products,
-    which are not layers."""
-    macs = 0
-
-    def conv_hook(layer, inputs, out):
-        nonlocal macs
-        macs += out[0].numel() * layer.weight[0].numel()
-
-    def dense_hook(layer, inputs, out):
-        nonlocal macs
-        macs += layer.weight.numel()
-
-    handles = [m.register_forward_hook(conv_hook) for m in module.modules()
-               if isinstance(m, torch.nn.Conv2d)]
-    handles += [m.register_forward_hook(dense_hook) for m in module.modules()
-                if isinstance(m, torch.nn.Linear)]
-    module.eval()
-    with torch.inference_mode():
-        module(torch.zeros((1, *data_shape), device=device))
-    for handle in handles:
-        handle.remove()
-    if hasattr(module, "digitcaps_w"):
-        d, p, q = module.digitcaps_w.shape
-        # u_hat, then each round's weighted sum and (but the last) its agreement
-        macs += d * p * q + (2 * module.iter_routing - 1) * d * q
-    return macs
-
-
 def _top_two_gap(module, scene, device, pixels: np.ndarray) -> float:
     """The largest gap between the two top logits, relative to the largest
     logit magnitude (at least 1), over ``pixels`` ((y, x) rows), classified
@@ -1038,8 +776,8 @@ def _top_two_gap(module, scene, device, pixels: np.ndarray) -> float:
 
 def phase_family(device, work: Path, family: Family) -> dict:
     """One classifier family at its published width through the train CLI,
-    the card-against-CPU steps, the infer CLI (``all``, then ``sample``), and
-    its step and sweep numbers."""
+    the card-against-CPU steps, the infer CLI (``all``, then ``sample``) and
+    a sweep through the API."""
     model = get_model_from_name(family.model)
     params = {**load_algorithm_params(model.default_params(), str(family.params_path)),
               "batch_size": family.batch}
@@ -1049,16 +787,12 @@ def phase_family(device, work: Path, family: Family) -> dict:
     log_root = work / f"{family.phase}_log"
 
     # train CLI
-    torch.cuda.reset_peak_memory_stats()
     reset_launches()
     reset_conv_counts()
-    start = time.perf_counter()
     result, _ = _run_train_cli(_train_args(log_root, family.steps, family))
-    cli_seconds = time.perf_counter() - start
     conv_routes = {"train": _conv_routes(family.model, "training")}
     by_batch = _note_main_path()
     launches = window_gather_cuda.launches
-    cli_peak_bytes = torch.cuda.max_memory_allocated()
     (log_dir,) = [p for p in log_root.iterdir() if p.is_dir()]
     _check_orbax(*(log_dir / "checkpoints" / str(s) for s in checkpoint_steps(str(log_dir))))
     losses = _logged_losses(log_dir)
@@ -1073,19 +807,17 @@ def phase_family(device, work: Path, family: Family) -> dict:
     vs_cpu = _card_vs_cpu(device, data, params, family, 3)
 
     # infer CLI: --domain all, then sample, from the trained checkpoint
-    maps, infer_launches, infer_seconds = {}, {}, {}
+    maps, infer_launches = {}, {}
     sweep_launches = {}
     for domain in ("all", "sample"):
         out_dir = work / f"{family.phase}_{domain}"
         reset_launches()
         reset_conv_counts()
-        start = time.perf_counter()
         infer_for_classification.main([
             "--loader_name=SyntheticDataLoader", f"--path={SPEC}",
             f"--neighborhood={family.neighborhood}", f"--model_name={family.model}",
             f"--algorithm_param_path={family.params_path}", f"--base_log_path={log_dir}",
             f"--output_path={out_dir}", f"--domain={domain}", "--device=cuda"])
-        infer_seconds[domain] = time.perf_counter() - start
         infer_launches[domain] = window_gather_cuda.launches
         conv_routes[domain] = _conv_routes(family.model, f"--domain={domain}")
         by_batch_infer = _note_main_path()
@@ -1116,77 +848,37 @@ def phase_family(device, work: Path, family: Family) -> dict:
               f"{family.model}: {sample_differ} pixels differ between --domain all and "
               f"sample, their two top logits up to {tie_gap} (relative) apart")
 
-    # numbers: the steady step and the sweep, each with its peak memory
-    trainer = _trainer(data, params, device, _augmentation(), model=family.model)
-    state = trainer.init_state()
-    tables = trainer.training_tables(10 + 3 * FAMILY_TIMED_STEPS + 2 * FAMILY_TRACED_STEPS,
-                                     family.batch)
-    torch.cuda.reset_peak_memory_stats()
-    _timed_steps(trainer, state, tables, 0, 10)
-    runs = [_timed_steps(trainer, state, tables, 10 + FAMILY_TIMED_STEPS * i,
-                         FAMILY_TIMED_STEPS) / FAMILY_TIMED_STEPS for i in range(3)]
-    step_peak_bytes = torch.cuda.max_memory_allocated()
-    _, step_profile = _steps_profile(trainer, state, tables, 10 + 3 * FAMILY_TIMED_STEPS,
-                                     FAMILY_TRACED_STEPS, top=8)
-    checkpoint = _timed_save(state, work / f"{family.phase}_saved") \
-        if family.model == "DUALCNNModel" else None  # the largest state: 7,783,240 parameters
-    torch.cuda.reset_peak_memory_stats()
-    # the infer CLI's sweep warmed the same shapes; the timed sweep's map is
-    # the kernel sweep's
-    swept = []
+    # the kernel rows read the trainer's tables; the largest state (DUALCNN's
+    # 7,783,240 parameters) is saved once and read back
+    tables = _trainer(data, params, device, model=family.model).training_tables(
+        KERNEL_CALLS, family.batch)
+    checkpoint = _save_read_back(result.final_state, work / f"{family.phase}_saved") \
+        if family.model == "DUALCNNModel" else None
+    # the sweep through the API, its map the plain gather's
     CAPModule.reset_routes()
-    sweep = _timed_sweeps(lambda: swept.append(predict_full_scene(module, scene, device=device)),
-                          runs=1, warm_up=False)
+    swept = predict_full_scene(module, scene, device=device)
     sweep_cap_routes = dict(CAPModule.routes)
-    check(np.array_equal(swept[0], plain_map),
+    check(np.array_equal(swept, plain_map),
           f"{family.model}: the kernel sweep's class map differs from the plain gather's")
-    sweep_peak_bytes = torch.cuda.max_memory_allocated()
-    _, sweep_profile = _sweep_profile(device, scene, module, top=8,
-                                      untraced_ms=sweep[0] * 1e3)
-
-    macs = _forward_macs(module, data.data_shape, device)
-    windows = n_bands * BATCH_ROWS * WIDTH  # the last band overlaps the one before
-    flop_bound = 2 * macs * windows / FP32_FLOP_PER_S
     record = {"phase": family.phase, "model": family.model,
               "config": str(family.params_path.relative_to(ROOT)), "patch": k,
               "batch": family.batch, "steps": family.steps, "targets": counts, **gather,
               "conv_routes": conv_routes,
               "gather_launches_by_batch": {str(b): n for b, n in sorted(by_batch.items())},
               "logged_losses": losses, "test_oa": result.test_accuracy,
-              "cli_seconds": cli_seconds, "cli_peak_device_bytes": cli_peak_bytes,
               "card_vs_cpu": vs_cpu, "infer_launches": infer_launches,
-              "infer_cli_seconds": infer_seconds, "sample_pixels_differ": sample_differ,
-              "sample_differ_top_two_gap": tie_gap,
+              "sample_pixels_differ": sample_differ, "sample_differ_top_two_gap": tie_gap,
               "classes_in_map": len(np.unique(maps["all"])),
-              "step_seconds": statistics.median(runs), "step_runs": runs,
-              "step_peak_device_bytes": step_peak_bytes,
-              "sweep_seconds": statistics.median(sweep), "sweep_runs": sweep,
-              "sweep_peak_device_bytes": sweep_peak_bytes, "profile_step": step_profile,
-              "profile_sweep": sweep_profile, "flop_per_pixel": 2 * macs,
-              "sweep_flop_bound_seconds": flop_bound,
               "parameters": sum(p.numel() for p in module.parameters()),
               **({"checkpoint": checkpoint} if checkpoint else {})}
-    # the function's bound: its FLOP, or the bytes it must move (the device
-    # scene and the weights read once, the uint8 class map written once)
-    io_bytes = (scene.device_scene(device).numel() + record["parameters"]) * 4 + HEIGHT * WIDTH
-    io_bound = io_bytes / HBM_BYTES_PER_S
-    record.update({"sweep_io_bytes": io_bytes, "sweep_bytes_bound_seconds": io_bound,
-                   "sweep_bound_seconds": max(flop_bound, io_bound),
-                   "sweep_bound_by": "bytes" if io_bound > flop_bound else "operations"})
     if family.model == "CAPModel":
-        # this implementation's traffic, not the function's: the u_hat that the
-        # sweep's last forward (a band) materialized, written once, read by
-        # every round's weighted sum and by each agreement but the last; the
-        # sweep takes the folded route, which forms none
+        # the sweep takes the folded route, which forms no u_hat (the counter
+        # holds the u_hat bytes of the sweep's last forward, a band)
         u_hat_bytes = CAPModule.u_hat_bytes
-        passes = 2 * module.iter_routing if u_hat_bytes else 0
         print(f"{family.phase}: the sweep's CAP routes {sweep_cap_routes}", flush=True)
         check(sweep_cap_routes == {"u_hat": 0, "folded": n_bands} and u_hat_bytes == 0,
               f"CAP's sweep took the u_hat route: {sweep_cap_routes}, {u_hat_bytes} B of u_hat")
-        record.update({"cap_routes": sweep_cap_routes, "u_hat_bytes_per_band": u_hat_bytes,
-                       "u_hat_passes": passes,
-                       "u_hat_traffic_bound_seconds":
-                           passes * u_hat_bytes * n_bands / HBM_BYTES_PER_S})
+        record.update({"cap_routes": sweep_cap_routes, "u_hat_bytes_per_band": u_hat_bytes})
     emit(record)
     return {"family": family, "data": data, "params": params, "scene": scene, "tables": tables,
             "train_launches": by_batch, "sweep_launches": sweep_launches}
@@ -1194,8 +886,8 @@ def phase_family(device, work: Path, family: Family) -> dict:
 
 def phase_fused_levels(device, scene3, dual) -> None:
     """Fused and unfused multi-scale levels give the same logits at full
-    width, on 256 windows of the scene (HYPELCNN at k = 3, DUALCNN at k = 5).
-    Then DUALCNN's sweep and step are timed both ways; ``dual`` is the
+    width, on 256 windows of the scene (HYPELCNN at k = 3, DUALCNN at k = 5);
+    then DUALCNN's sweep and training steps both ways; ``dual`` is the
     ``family_dualcnn`` phase's result."""
     results = {}
     rng = np.random.default_rng(SEED)
@@ -1220,53 +912,36 @@ def phase_fused_levels(device, scene3, dual) -> None:
                                "argmax_equal": bool(torch.equal(got.argmax(1),
                                                                 expected.argmax(1)))}
     # the loop's last modules are DUALCNN's
-    results["DUALCNNModel"]["timed"] = _fused_timings(device, dual, unfused, fused)
+    results["DUALCNNModel"].update(_fused_paths(device, dual, unfused, fused))
     emit({"phase": "fused_levels", "windows": 256, "models": results})
 
 
-def _fused_timings(device, dual, unfused, fused) -> dict:
-    """DUALCNN unfused and fused: the sweep (one cold run; three runs after
-    a warm-up spread by 0.07% in earlier calls) with its peak memory, then the
-    step in FUSED_PAIRS pairs of FUSED_RUN_STEPS-step runs after 10 warm-up steps each,
-    alternating which version runs first (the host-bound step drifts within
-    a call by more than the versions differ), with each version's kernel
-    launches and idle share over FUSED_TRACED traced steps."""
+def _fused_paths(device, dual, unfused, fused) -> dict:
+    """DUALCNN fused against unfused through the sweep and the trainer: the
+    scene's maps equal but at top-two ties, then FUSED_STEPS augmented steps
+    from one init on the same tables, step 1's loss within 1e-4 (relative)
+    and every loss finite."""
     family, scene, data = dual["family"], dual["scene"], dual["data"]
-    timed = {}
-    for name, module in (("unfused", unfused), ("fused", fused)):
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
-        sweep = _timed_sweeps(lambda m=module: predict_full_scene(m, scene, device=device),
-                              runs=1, warm_up=False)
-        timed[name] = {"sweep_seconds": statistics.median(sweep), "sweep_runs": sweep,
-                       "sweep_peak_device_bytes": torch.cuda.max_memory_allocated()}
-    steppers = {}
+    maps = {name: predict_full_scene(module, scene, device=device)
+            for name, module in (("unfused", unfused), ("fused", fused))}
+    sweep = _same_but_ties(maps["fused"], maps["unfused"], unfused, scene, device,
+                           "DUALCNN's fused sweep")
+    losses, init, tables = {}, None, None
     for name, fuse in (("unfused", False), ("fused", True)):
         trainer = _trainer(data, {**dual["params"], "fuse_level_convs": fuse}, device,
                            _augmentation(), model=family.model)
-        state = trainer.init_state()
-        tables = trainer.training_tables(10 + FUSED_PAIRS * FUSED_RUN_STEPS + 2 * FUSED_TRACED,
-                                         family.batch)
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
-        _timed_steps(trainer, state, tables, 0, 10)
-        timed[name]["step_peak_device_bytes"] = torch.cuda.max_memory_allocated()
-        steppers[name] = (trainer, state, tables)
-    runs = {"unfused": [], "fused": []}
-    for pair in range(FUSED_PAIRS):
-        for name in (("unfused", "fused") if pair % 2 == 0 else ("fused", "unfused")):
-            trainer, state, tables = steppers[name]
-            runs[name].append(_timed_steps(trainer, state, tables, 10 + FUSED_RUN_STEPS * pair,
-                                           FUSED_RUN_STEPS) / FUSED_RUN_STEPS)
-    for name, (trainer, state, tables) in steppers.items():
-        _, profile = _steps_profile(trainer, state, tables, 10 + FUSED_PAIRS * FUSED_RUN_STEPS,
-                                    FUSED_TRACED, top=0)
-        timed[name].update({"step_seconds": statistics.median(runs[name]),
-                            "step_runs": runs[name],
-                            "step_launches": profile["kernel_launches"] / FUSED_TRACED,
-                            "step_idle_share": profile["device_idle_share"]})
-    timed["fused_step_wins"] = sum(f < u for u, f in zip(runs["unfused"], runs["fused"]))
-    return timed
+        state = trainer.init_state(init)
+        if init is None:
+            init = fuse_variables({k: v.detach().cpu().clone()
+                                   for k, v in state.module.state_dict().items()})
+            tables = trainer.training_tables(FUSED_STEPS, family.batch)
+        losses[name] = [float(trainer.train_step(state, tables, step))
+                        for step in range(FUSED_STEPS)]
+    rel = abs(losses["fused"][0] - losses["unfused"][0]) / abs(losses["unfused"][0])
+    check(rel < 1e-4, f"DUALCNN's fused step 1 loss differs from the unfused by {rel} (relative)")
+    check(all(math.isfinite(v) for run in losses.values() for v in run),
+          f"DUALCNN's fused or unfused training losses: {losses}")
+    return {"sweep": sweep, "step_losses": losses, "step1_rel_diff": rel}
 
 
 # ---- the loader phases ----
@@ -1284,33 +959,24 @@ def _same_scene(got, expected, what: str) -> None:
 
 
 def _write(writer, root: Path, **sizes):
-    start = time.perf_counter()
     arrays = writer(str(root), **sizes)
     files = {str(f.relative_to(root)): f.stat().st_size for f in sorted(root.rglob("*"))
              if f.is_file()}
-    return arrays, {"write_seconds": time.perf_counter() - start, "files": files,
-                    "bytes": sum(files.values())}
+    return arrays, {"files": files, "bytes": sum(files.values())}
 
 
 def _read(loader: str, root: Path, train_ratio: float, test_ratio: float, device, reads: list):
     """The train CLI's data set, read the way it reads it (seed, importer),
-    then put on the device; with the read and upload times and the bytes of
-    ``reads``, the files the loader opens for it."""
+    then put on the device; with the bytes of ``reads``, the files the loader
+    opens for it."""
     read_bytes = sum((root / name).stat().st_size for name in reads)
-    start = time.perf_counter()
     set_run_seed()
     data = get_importer_from_name("GeneratorImporter").read_data_set(
         loader, str(root), train_ratio, test_ratio, NEIGHBORHOOD)
-    read_seconds = time.perf_counter() - start
-    source = data.sources["training"]
-    torch.cuda.synchronize()
-    start = time.perf_counter()
-    arrays = source.device_arrays(device)
-    torch.cuda.synchronize()
+    arrays = data.sources["training"].device_arrays(device)
     tensors = arrays if isinstance(arrays, tuple) else (arrays,)
     counts = {split: data.targets(split).shape[0] for split in ("training", "test", "validation")}
-    return data, {"read_seconds": read_seconds, "read_bytes": read_bytes,
-                  "upload_seconds": time.perf_counter() - start,
+    return data, {"read_bytes": read_bytes,
                   "device_scene_bytes": sum(t.numel() * t.element_size() for t in tensors),
                   "targets": counts}
 
@@ -1323,47 +989,35 @@ def _loader_params() -> dict:
 def _loader_train_cli(device, loader: str, root: Path, log_root: Path, steps: int,
                       train_ratio: float, test_ratio: float) -> dict:
     """The train CLI on a dataset directory, HYPELCNN at full width, no
-    augmentation; its gather launches by batch size, logged losses and time."""
+    augmentation; its gather launches by batch size and logged losses."""
     args = [f"--device={device.type}", f"--loader_name={loader}", f"--path={root}",
             "--model_name=HYPELCNNModel", "--importer_name=GeneratorImporter",
             f"--neighborhood={NEIGHBORHOOD}", f"--algorithm_param_path={PARAMS_PATH}",
             f"--batch_size={LOADER_BATCH}", f"--train_ratio={train_ratio}",
             f"--test_ratio={test_ratio}", f"--step={steps}", f"--save_checkpoint_steps={steps}",
             f"--base_log_path={log_root}"]
-    torch.cuda.reset_peak_memory_stats()
     reset_launches()
-    start = time.perf_counter()
     result, _ = _run_train_cli(args)
-    cli_seconds = time.perf_counter() - start
     by_batch = _note_main_path()
     (log_dir,) = [p for p in log_root.iterdir() if p.is_dir()]
     losses = _logged_losses(log_dir)
     check(len(losses) >= 1 and all(math.isfinite(v) for _, v in losses),
           f"{loader}: non-finite or missing logged losses: {losses}")
     return {"result": result, "log_dir": log_dir, "by_batch": by_batch,
-            "launches": window_gather_cuda.launches, "losses": losses,
-            "cli_seconds": cli_seconds, "cli_peak_device_bytes": torch.cuda.max_memory_allocated()}
+            "launches": window_gather_cuda.launches, "losses": losses}
 
 
 def _loader_steps(device, data, loader: str, run: dict) -> dict:
     """The CLI's first step again (same seed, weights, batch and dropout
-    draws, so its loss is the CLI's first), the check that the CLI's last
-    logged loss is below it, and the steady step time (median of 3 runs of
-    30 steps after 10 warm-up steps) with its peak memory."""
+    draws, so its loss is the CLI's first) and the check that the CLI's last
+    logged loss is below it; with the trainer's tables."""
     trainer = _trainer(data, _loader_params(), device)
     state = trainer.init_state()
-    tables = trainer.training_tables(10 + 3 * 30, LOADER_BATCH)
+    tables = trainer.training_tables(KERNEL_CALLS, LOADER_BATCH)
     first_loss = float(trainer.train_step(state, tables, 0))
     check(math.isfinite(first_loss) and run["losses"][-1][1] < first_loss,
           f"{loader}: the loss did not fall from {first_loss}: {run['losses']}")
-    torch.cuda.reset_peak_memory_stats()
-    _timed_steps(trainer, state, tables, 1, 9)
-    runs = [_timed_steps(trainer, state, tables, 10 + 30 * i, 30) / 30 for i in range(3)]
-    return {"first_loss": first_loss, "step_seconds": statistics.median(runs),
-            "step_runs": runs, "step_peak_device_bytes": torch.cuda.max_memory_allocated(),
-            "tables": tables}
-
-
+    return {"first_loss": first_loss, "tables": tables}
 
 
 def _loader_record(phase: str, written: dict, read: dict, run: dict, steps: dict) -> dict:
@@ -1371,11 +1025,7 @@ def _loader_record(phase: str, written: dict, read: dict, run: dict, steps: dict
             "gather_launches_by_batch": {str(b): n for b, n in sorted(run["by_batch"].items())},
             "logged_losses": run["losses"], "first_loss": steps["first_loss"],
             "test_oa": run["result"].test_accuracy,
-            "validation_oa": run["result"].validation_accuracy,
-            "cli_seconds": run["cli_seconds"],
-            "cli_peak_device_bytes": run["cli_peak_device_bytes"],
-            "step_seconds": steps["step_seconds"], "step_runs": steps["step_runs"],
-            "step_peak_device_bytes": steps["step_peak_device_bytes"]}
+            "validation_oa": run["result"].validation_accuracy}
 
 
 def phase_loader_grss2013(device, work: Path) -> dict:
@@ -1401,12 +1051,10 @@ def phase_loader_grss2013(device, work: Path) -> dict:
 
     out_dir = work / "grss2013_all"
     reset_launches()
-    start = time.perf_counter()
     infer_for_classification.main([
         f"--loader_name={loader}", f"--path={root}", f"--neighborhood={NEIGHBORHOOD}",
         f"--algorithm_param_path={PARAMS_PATH}", f"--base_log_path={run['log_dir']}",
         f"--output_path={out_dir}", "--domain=all", f"--device={device.type}"])
-    infer_seconds = time.perf_counter() - start
     infer_launches = window_gather_cuda.launches
     _note_main_path()
     height = arrays["casi"].shape[0]
@@ -1417,10 +1065,9 @@ def phase_loader_grss2013(device, work: Path) -> dict:
     check(np.array_equal(cli_map, memory_map),
           f"{loader}: the infer CLI's map differs from the in-memory scene's")
     emit({**_loader_record("loader_grss2013", written, read, run, steps), **launches,
-          "infer_launches": infer_launches, "infer_cli_seconds": infer_seconds,
-          "classes_in_map": len(np.unique(cli_map))})
+          "infer_launches": infer_launches, "classes_in_map": len(np.unique(cli_map))})
     return {"run": run, "root": root, "targets": read["targets"],
-            "first_loss": steps["first_loss"], "step_seconds": steps["step_seconds"]}
+            "first_loss": steps["first_loss"]}
 
 
 def phase_loader_grss2018(device, work: Path) -> None:
@@ -1462,11 +1109,9 @@ def phase_loader_grss2018(device, work: Path) -> None:
     steps = _loader_steps(device, data, loader, run)
 
     out_dir = work / "grss2018_gt"
-    start = time.perf_counter()
     infer_for_classification.main([
         f"--loader_name={loader}", f"--path={root}", f"--output_path={out_dir}",
         "--domain=gt", f"--device={device.type}"])
-    gt_seconds = time.perf_counter() - start
     gt_map = imread(str(out_dir / "result_raw.tif"))
     expected = np.full(data.scene.get_scene_shape(), 255, dtype=np.uint8)
     ys, xs = np.nonzero(arrays["gt"])
@@ -1475,8 +1120,7 @@ def phase_loader_grss2018(device, work: Path) -> None:
     check(np.array_equal(gt_map, expected), f"{loader}: the gt map differs from the GT written")
     emit({**_loader_record("loader_grss2018", written, read, run, steps),
           "lidar_values_above_300": outliers, "dual_gather_windows_checked": DUAL_CHECKS,
-          "window_gather_launches": run["launches"], "gt_cli_seconds": gt_seconds,
-          "gt_map_shape": list(gt_map.shape)})
+          "window_gather_launches": run["launches"], "gt_map_shape": list(gt_map.shape)})
 
 
 def phase_loader_gulfport(device, work: Path) -> dict:
@@ -1514,10 +1158,8 @@ def phase_loader_gulfport(device, work: Path) -> dict:
         data_shape=mixed.get_data_shape(), device=device)
     losses = []
     reset_launches()
-    start = time.perf_counter()
     mixed_result = trainer.fit(MIXED_STEPS, LOADER_BATCH, log_every=10,
                                progress_callback=lambda s, l: losses.append((s, l)))
-    mixed_seconds = time.perf_counter() - start
     _note_main_path()
     check(window_gather_cuda.launches == 0,
           f"MIXED: {window_gather_cuda.launches} window_gather launches")
@@ -1540,7 +1182,7 @@ def phase_loader_gulfport(device, work: Path) -> dict:
     share = shadowed_draws / MEMBER_DRAWS
     check(0.70 <= share <= 0.80, f"MIXED: {share} of the draws are shadowed")
     emit({**_loader_record("loader_gulfport", written, read, run, steps), **launches,
-          "mixed": {"steps": MIXED_STEPS, "seconds": mixed_seconds, "losses": losses,
+          "mixed": {"steps": MIXED_STEPS, "losses": losses,
                     "validation_oa": mixed_result.validation_accuracy,
                     "scenes_on_device": int(stacked.shape[0]), "lookup": lookup.tolist(),
                     "device_bytes": stacked.numel() * stacked.element_size(),
@@ -1599,44 +1241,11 @@ def _gan_family_step_fn(family: str, pairs: dict, device, steps: int, seed: int 
     return trainer, state, step_fn
 
 
-def _gan_steps_time(step_fn, state, start: int, count: int) -> float:
-    torch.cuda.synchronize()
-    begin = time.perf_counter()
-    for step in range(start, start + count):
-        step_fn(state, step)
-    torch.cuda.synchronize()
-    return time.perf_counter() - begin
-
-
-def _gan_step_record(step_fn, state, start: int, count: int, traced_steps: int = 10) -> dict:
-    """The steady step (median of 3 runs of ``count`` steps after
-    ``traced_steps`` warm-up steps), then device time, launches and idle
-    share over ``traced_steps`` traced steps (``3 * count + 3 *
-    traced_steps`` steps from ``start`` in all)."""
-    _gan_steps_time(step_fn, state, start, traced_steps)
-    start += traced_steps
-    runs = []
-    for _ in range(3):
-        runs.append(_gan_steps_time(step_fn, state, start, count) / count)
-        start += count
-    untraced_ms = _gan_steps_time(step_fn, state, start, traced_steps) * 1e3
-
-    def traced():
-        for step in range(start + traced_steps, start + 2 * traced_steps):
-            step_fn(state, step)
-
-    _, profile = _traced(traced, untraced_ms, top=6)
-    return {"step_seconds": statistics.median(runs), "step_runs": runs,
-            "launches_per_step": profile["kernel_launches"] / traced_steps,
-            "idle_share": profile["device_idle_share"], "profile": profile}
-
-
 def phase_gan_train(device, work: Path, root: Path) -> dict:
     """``gan_train_for_shadow`` (cycle_gan, random pairing, batch 32) on the
     GRSS2013 layout that ``loader_grss2013`` wrote: ``GAN_STEPS`` steps,
     validation and checkpoints every ``GAN_VALIDATION``; then a rerun to
-    ``GAN_RESUME_STEPS`` that resumes from a state that restores bit for bit;
-    then the step through the API."""
+    ``GAN_RESUME_STEPS`` that resumes from a state that restores bit for bit."""
     captured = {}
     build = gan_train_for_shadow.build_step_fn
 
@@ -1647,11 +1256,7 @@ def phase_gan_train(device, work: Path, root: Path) -> dict:
     base = work / "gan" / "run"
     gan_train_for_shadow.build_step_fn = capture
     try:
-        torch.cuda.reset_peak_memory_stats()
-        start = time.perf_counter()
         divergences, out = _run_quiet(gan_train_for_shadow.main, _gan_args(root, base, GAN_STEPS))
-        cli_seconds = time.perf_counter() - start
-        cli_peak = torch.cuda.max_memory_allocated()
     finally:
         gan_train_for_shadow.build_step_fn = build
     (log_dir,) = [p for p in base.parent.iterdir() if p.is_dir()]
@@ -1690,10 +1295,8 @@ def phase_gan_train(device, work: Path, root: Path) -> dict:
     check(saved["step"] == state.step == GAN_STEPS
           and _same_tree(state.checkpoint_tree(), saved[ORBAX_TREE]),
           "the restored GAN state differs from the saved one")
-    checkpoint = _timed_save(state, work / "gan_saved")
-    start = time.perf_counter()
+    checkpoint = _save_read_back(state, work / "gan_saved")
     _, out = _run_quiet(gan_train_for_shadow.main, _gan_args(root, base, GAN_RESUME_STEPS))
-    resume_seconds = time.perf_counter() - start
     resumed = [line for line in out.splitlines() if line.startswith("Resuming")]
     check(resumed == [f"Resuming GAN training from checkpoint at step {GAN_STEPS}"],
           f"the GAN rerun did not resume at {GAN_STEPS}: {resumed}")
@@ -1702,36 +1305,26 @@ def phase_gan_train(device, work: Path, root: Path) -> dict:
 
     pairs = {"normal": captured["normal"], "shadow": captured["shadow"],
              "ratio": captured["ratio"]}
-    _, state, step_fn = _gan_family_step_fn("cycle_gan", pairs, device,
-                                            3 * GAN_TIMED_STEPS + 60)
-    step = _gan_step_record(step_fn, state, 0, GAN_TIMED_STEPS)
     emit({"phase": "gan_train", "pairs": n_pairs, "pair_bytes": 2 * n_pairs * GAN_BANDS * 4,
           "batch": GAN_BATCH, "steps": GAN_STEPS, "cadence_losses": losses,
-          "divergences": divergences, "cli_seconds": cli_seconds, "cli_peak_device_bytes": cli_peak,
-          "resumed_line": resumed[0], "resume_cli_seconds": resume_seconds,
-          "checkpoint": checkpoint,
-          **{k: v for k, v in step.items() if k != "profile"}, "profile": step["profile"]})
+          "divergences": divergences, "resumed_line": resumed[0], "checkpoint": checkpoint})
     return {"log_dir": log_dir, "pairs": pairs}
 
 
 def phase_gan_families(device, pairs: dict) -> dict:
     """Each of the seven GAN families on the device pairs at batch 32:
-    ``GAN_FAMILY_STEPS`` steps with finite losses, the step's numbers, and 2 steps on the card
+    ``GAN_FAMILY_STEPS`` steps with finite losses, and 2 steps on the card
     against the CPU from one init, on the same batches and pool draws; then
     dcl_cycle_gan against dcl_gan, bit for bit under cuDNN's deterministic
     algorithms."""
     records = {}
     for family in GAN_FAMILIES:
-        _, state, step_fn = _gan_family_step_fn(family, pairs, device,
-                                                GAN_FAMILY_STEPS + 3 * 5 + 3 * 5)
+        _, state, step_fn = _gan_family_step_fn(family, pairs, device, GAN_FAMILY_STEPS)
         losses = torch.stack([step_fn(state, step) for step in range(GAN_FAMILY_STEPS)])
         check(bool(torch.isfinite(losses).all()), f"{family}: non-finite losses")
-        step = _gan_step_record(step_fn, state, GAN_FAMILY_STEPS, 5, traced_steps=5)
         records[family] = {"losses_at": {str(s): float(losses[s - 1]) for s in
                                           (1, GAN_FAMILY_STEPS // 2, GAN_FAMILY_STEPS)},
-                           "card_vs_cpu": _gan_card_vs_cpu(family, pairs, device),
-                           **{k: v for k, v in step.items() if k != "profile"},
-                           "top": step["profile"]["top"]}
+                           "card_vs_cpu": _gan_card_vs_cpu(family, pairs, device)}
     deterministic = torch.backends.cudnn.deterministic
     torch.backends.cudnn.deterministic = True
     try:
@@ -1777,53 +1370,34 @@ def _gan_card_vs_cpu(family: str, pairs: dict, device) -> dict:
 
 def phase_gan_infer(device, work: Path, root: Path, log_dir: Path) -> None:
     """``gan_infer_for_shadow`` on ``gan_params`` at its default 6,000 samples."""
-    start = time.perf_counter()
     validator, _ = _run_quiet(gan_infer_for_shadow.main, [
         "--device=cuda", "--loader_name=GRSS2013DataLoader", f"--path={root}",
         f"--base_log_path={log_dir / 'gan_params'}", f"--output_path={work}"])
-    seconds = time.perf_counter() - start
     divergences = {"mean": validator.get_best_mean_div(), "upper": validator.get_best_upper_div()}
     check(all(len(v) == 2 and all(math.isfinite(d) for d in v) for v in divergences.values()),
           f"gan_infer divergences: {divergences}")
-    emit({"phase": "gan_infer", "samples": 6000, "divergences": divergences,
-          "cli_seconds": seconds})
-
-
-def _translate_bound() -> dict:
-    """The scene translation's bound: the generator's seven SAME convolutions
-    (taps 144, 72, 36, 18, 36, 72, 144 over 144 outputs) a pixel, against the
-    pixels read and written once."""
-    taps = sum(max(GAN_BANDS // d, 1) for d in (1, 2, 4, 8, 4, 2, 1))
-    pixels = HEIGHT * WIDTH
-    flop = 2 * GAN_BANDS * taps * pixels
-    io_bytes = 2 * pixels * GAN_BANDS * 4
-    bound = max(flop / FP32_FLOP_PER_S, io_bytes / HBM_BYTES_PER_S)
-    return {"flop_per_pixel": 2 * GAN_BANDS * taps, "flop": flop, "io_bytes": io_bytes,
-            "bound_ms": bound * 1e3,
-            "bound_by": "operations" if flop / FP32_FLOP_PER_S > io_bytes / HBM_BYTES_PER_S
-            else "bytes"}
+    emit({"phase": "gan_infer", "samples": 6000, "divergences": divergences})
 
 
 def phase_gan_infer_image(device, work: Path, root: Path, log_dir: Path) -> None:
     """``gan_infer_image_for_shadow``: shadow, deshadow, shadow with
-    ``--convert_all``, and the untranslated scene; then ``translate_scene``
-    timed with the conv and the Toeplitz generators."""
+    ``--convert_all``, and the untranslated scene; then the conv and the
+    Toeplitz generators on the card against the CPU, and the Toeplitz one's
+    ``translate_scene`` over the whole scene."""
     params = log_dir / "gan_params"
     out_dir = work / "gan_image"
     out_dir.mkdir()
     loader = GRSS2013DataLoader(str(root))
     scene = loader.load_data(0, True)
     shadow_map, _ = loader.load_shadow_map(0, None)
-    images, seconds = {}, {}
+    images = {}
     for mode, convert_all in (("", False), ("shadow", False), ("deshadow", False),
                               ("shadow", True)):
-        start = time.perf_counter()
         path, _ = _run_quiet(gan_infer_image_for_shadow.main, [
             "--device=cuda", "--loader_name=GRSS2013DataLoader", f"--path={root}",
             f"--base_log_path={params}", f"--output_path={out_dir}",
             f"--make_them_shadow={mode}", f"--convert_all={convert_all}"])
         key = (mode or "none") + ("_all" if convert_all else "")
-        seconds[key] = time.perf_counter() - start
         images[key] = imread(path)
         check(images[key].shape == (HEIGHT, WIDTH, GAN_BANDS)
               and images[key].dtype == scene.get_unnormalized_casi_dtype(),
@@ -1854,27 +1428,25 @@ def phase_gan_infer_image(device, work: Path, root: Path, log_dir: Path) -> None
             err = float((got - expected).abs().max())
             check(err <= 1e-5, f"{impl} translation differs from the CPU's by {err}")
             errors[f"{impl}_{'shadow' if is_shadow else 'deshadow'}"] = err
+    # the Toeplitz generator over the whole scene through translate_scene
+    # (blocks of 65,536 pixels, the last one zero-padded) against its own
+    # translate of the same blocks unpadded
     pixels = np.ascontiguousarray(scene.casi[:, :, :GAN_BANDS], dtype=np.float32)
-    timed = {}
-    for impl, owner in (("conv", trainer), ("toeplitz", toeplitz)):
-        runs = _timed_sweeps(lambda o=owner, n=nets[impl]: o.translate_scene(n, pixels, True),
-                             runs=2)
-        timed[impl] = {"seconds": statistics.median(runs), "runs": runs}
-        # the device's own time: the blocks already on the card
-        blocks = torch.from_numpy(pixels.reshape(-1, 1, 1, GAN_BANDS)).to(device).split(65536)
-        device_runs = _timed_sweeps(lambda o=owner, n=nets[impl]: [o.translate(n, b, True)
-                                                                    for b in blocks], runs=2)
-        timed[impl].update(device_seconds=statistics.median(device_runs),
-                           device_runs=device_runs)
+    swept = toeplitz.translate_scene(nets["toeplitz"], pixels, True)
+    blocks = torch.from_numpy(pixels.reshape(-1, 1, 1, GAN_BANDS)).to(device).split(65536)
+    expected = torch.cat([toeplitz.translate(nets["toeplitz"], b, True) for b in blocks])
+    scene_err = float(np.abs(swept - expected.cpu().numpy().reshape(pixels.shape)).max())
+    check(np.isfinite(swept).all() and scene_err <= 1e-5,
+          f"translate_scene differs from translate's blocks by {scene_err}")
     emit({"phase": "gan_infer_image", "scene": [HEIGHT, WIDTH, GAN_BANDS],
-          "cli_seconds": seconds, "translate_abs_err_vs_cpu": errors, "checked": TRANSLATE_CHECKS,
-          "translate_scene": timed, **{f"translate_{k}": v for k, v in _translate_bound().items()}})
+          "translate_abs_err_vs_cpu": errors, "checked": TRANSLATE_CHECKS,
+          "translate_scene_abs_err": scene_err})
 
 
 def _augmented_cli(work: Path, root: Path, method: str, steps: int, targets: dict) -> dict:
     """The train CLI on the GRSS2013 layout at HYPELCNN's full width, batch
     48, with ``--augment_data_with_shadow method`` at threshold 0.3: its
-    result, logged losses, time, peak memory and the gather's exact launches."""
+    result, logged losses and the gather's exact launches."""
     log_root = work / f"augmented_{method}_{steps}"
     args = ["--device=cuda", "--loader_name=GRSS2013DataLoader", f"--path={root}",
             "--model_name=HYPELCNNModel", "--importer_name=GeneratorImporter",
@@ -1883,20 +1455,15 @@ def _augmented_cli(work: Path, root: Path, method: str, steps: int, targets: dic
             f"--test_ratio={LOADER_TEST_RATIO}", f"--step={steps}",
             f"--save_checkpoint_steps={steps}", f"--augment_data_with_shadow={method}",
             f"--augmentation_random_threshold={SHADOW_THRESHOLD}", f"--base_log_path={log_root}"]
-    torch.cuda.reset_peak_memory_stats()
     reset_launches()
-    start = time.perf_counter()
     result, _ = _run_train_cli(args)
-    cli_seconds = time.perf_counter() - start
     by_batch = _note_main_path()
     launches = window_gather_cuda.launches
     (run_dir,) = [p for p in log_root.iterdir() if p.is_dir()]
     losses = _logged_losses(run_dir)
     check(len(losses) >= 1 and all(math.isfinite(v) for _, v in losses),
           f"{method} augmentation: losses {losses}")
-    return {"result": result, "by_batch": by_batch, "losses": losses,
-            "cli_seconds": cli_seconds, "steps": steps,
-            "cli_peak_device_bytes": torch.cuda.max_memory_allocated(),
+    return {"result": result, "by_batch": by_batch, "losses": losses, "steps": steps,
             **_check_launches(f"{method} augmentation", by_batch, launches, targets, steps,
                               LOADER_BATCH)}
 
@@ -1905,8 +1472,7 @@ def _augmented_record(run: dict) -> dict:
     return {"steps": run["steps"], "logged_losses": run["losses"],
             "test_oa": run["result"].test_accuracy,
             "gather_launches_by_batch": {str(b): n for b, n in sorted(run["by_batch"].items())},
-            "gather_launches": run["gather_launches"], "cli_seconds": run["cli_seconds"],
-            "cli_peak_device_bytes": run["cli_peak_device_bytes"]}
+            "gather_launches": run["gather_launches"]}
 
 
 def _shadow_checks(data, info, device, run: dict) -> dict:
@@ -1935,24 +1501,12 @@ def _shadow_checks(data, info, device, run: dict) -> dict:
             "windows": run["steps"] * LOADER_BATCH}
 
 
-def _augmented_step(data, info, device) -> dict:
-    """The step with ``info``'s augmentation (median of 3 runs of
-    ``AUGMENTED_TIMED_STEPS`` after 10)."""
-    stepper = _trainer(data, _loader_params(), device, info)
-    state = stepper.init_state()
-    tables = stepper.training_tables(10 + 3 * AUGMENTED_TIMED_STEPS, LOADER_BATCH)
-    _timed_steps(stepper, state, tables, 0, 10)
-    step_runs = [_timed_steps(stepper, state, tables, 10 + AUGMENTED_TIMED_STEPS * i,
-                              AUGMENTED_TIMED_STEPS) / AUGMENTED_TIMED_STEPS for i in range(3)]
-    return {"step_seconds": statistics.median(step_runs), "step_runs": step_runs}
-
-
 def phase_gan_augmented(device, work: Path, root: Path, log_dir: Path) -> dict:
     """The GAN's ``gan_params`` installed at GRSS2013's declared cycle_gan
     path; the train CLI at HYPELCNN's full width, batch 48, with cycle_gan
     shadow augmentation at threshold 0.3 for 100 steps, then 50 with
     ``simple``; the share of windows shadowed, the gather's launches, a
-    falling loss and test OA; the step with and without the shadow op."""
+    falling loss and test OA."""
     loader = GRSS2013DataLoader(str(root))
     target = Path(loader.get_model_base_dir()) / loader.get_shadow_checkpoints()["cycle_gan"]
     shutil.copytree(log_dir / "gan_params", target)
@@ -1971,13 +1525,10 @@ def phase_gan_augmented(device, work: Path, root: Path, log_dir: Path) -> dict:
     info = AugmentationInfo(shadow_struct=creators["cycle_gan"], perform_shadow_augmentation=True,
                             augmentation_random_threshold=SHADOW_THRESHOLD)
     shadow = _shadow_checks(data, info, device, gan)
-    timed = {"plain": _augmented_step(data, None, device),
-             "gan_shadow": _augmented_step(data, info, device)}
     emit({"phase": "gan_augmented", "threshold": SHADOW_THRESHOLD, **shadow,
-          "installed_at": str(target.relative_to(root)), "step": timed,
+          "installed_at": str(target.relative_to(root)),
           **{method: _augmented_record(r) for method, r in runs.items()}})
-    return {"launches": sum(r["by_batch"].get(LOADER_BATCH, 0) for r in runs.values()),
-            "step": timed}
+    return sum(r["by_batch"].get(LOADER_BATCH, 0) for r in runs.values())
 
 
 # ---- the search, records and TF checkpoint phases ----
@@ -2016,22 +1567,18 @@ def phase_search(device, work: Path, root: Path, grss: dict) -> dict:
     cwd = os.getcwd()
     os.chdir(search_dir)
     try:
-        runs, seconds = [], []
+        runs = []
         for trials in (2, 1):
             reset_launches()
-            start = time.perf_counter()
             study, out = _run_quiet(train_for_classification.main,
                                     args + [f"--opt_trial_count={trials}"])
-            seconds.append(time.perf_counter() - start)
             runs.append((_note_main_path(), window_gather_cuda.launches, out))
         gan_base = search_dir / "gan"
-        start = time.perf_counter()
         gan_study, gan_out = _run_quiet(gan_train_for_shadow.main, [
             "--device=cuda", "--loader_name=GRSS2013DataLoader", f"--path={root}",
             "--gan_type=cycle_gan", "--pairing_method=random", f"--step={GAN_SEARCH_STEPS}",
             f"--flag_config_file_opt={GAN_SPACE}", "--opt_trial_count=2", "--opt_run_count=1",
             f"--base_log_path={gan_base}"])
-        gan_seconds = time.perf_counter() - start
     finally:
         os.chdir(cwd)
 
@@ -2077,15 +1624,14 @@ def phase_search(device, work: Path, root: Path, grss: dict) -> dict:
           "classifier_trials": [{"number": r[1], "value": r[2], "params": json.loads(r[3])}
                                 for r in rows],
           "trial_losses": trial_losses, "first_loss": grss["first_loss"],
-          "gather_launches": launches, "cli_seconds": seconds,
-          "gan_steps": GAN_SEARCH_STEPS,
+          "gather_launches": launches, "gan_steps": GAN_SEARCH_STEPS,
           "gan_trials": [{"number": r[1], "value": r[2], "params": json.loads(r[3])}
                          for r in gan_rows],
-          "gan_generator_losses": gan_losses, "gan_cli_seconds": gan_seconds})
+          "gan_generator_losses": gan_losses})
     return launches
 
 
-def phase_records(device, work: Path, root: Path, grss: dict) -> None:
+def phase_records(device, work: Path, root: Path) -> None:
     """``record_writer`` writes the GRSS2013 layout's splits at k = 3 as the
     ``.npz`` cache and as the reference's ``.tfrecord`` set; ``RecordImporter``
     reads both back, equal bit for bit to ``InMemoryImporter``'s patches (and,
@@ -2094,19 +1640,15 @@ def phase_records(device, work: Path, root: Path, grss: dict) -> None:
     common = ["--loader_name=GRSS2013DataLoader", f"--path={root}",
               f"--neighborhood={NEIGHBORHOOD}", f"--train_ratio={LOADER_TRAIN_RATIO}",
               f"--test_ratio={LOADER_TEST_RATIO}"]
-    written, read, imported = {}, {}, {}
+    written, imported = {}, {}
     for fmt in ("npz", "tfrecord"):
         out = work / f"records_{fmt}"
         set_run_seed()  # the loader's split draws, as the train CLI seeds them
-        start = time.perf_counter()
         _run_quiet(record_writer.main, common + [f"--output_path={out}", f"--format={fmt}"])
-        written[fmt] = {"seconds": time.perf_counter() - start,
-                        "bytes": sum(f.stat().st_size for f in out.iterdir()),
+        written[fmt] = {"bytes": sum(f.stat().st_size for f in out.iterdir()),
                         "files": sorted(f.name for f in out.iterdir())}
-        start = time.perf_counter()
         imported[fmt] = get_importer_from_name("RecordImporter").read_data_set(
             "GRSS2013DataLoader", str(out), None, None, None)
-        read[fmt] = {"seconds": time.perf_counter() - start}
     set_run_seed()
     memory = get_importer_from_name("InMemoryImporter").read_data_set(
         "GRSS2013DataLoader", str(root), LOADER_TRAIN_RATIO, LOADER_TEST_RATIO, NEIGHBORHOOD)
@@ -2135,9 +1677,7 @@ def phase_records(device, work: Path, root: Path, grss: dict) -> None:
             f"--step={RECORD_STEPS}", f"--save_checkpoint_steps={RECORD_STEPS}",
             f"--base_log_path={log_root}"]
     reset_launches()
-    start = time.perf_counter()
     result, _ = _run_train_cli(args)
-    cli_seconds = time.perf_counter() - start
     _note_main_path()
     check(window_gather_cuda.launches == 0,
           f"RecordImporter launched the gather {window_gather_cuda.launches} times")
@@ -2146,37 +1686,30 @@ def phase_records(device, work: Path, root: Path, grss: dict) -> None:
     check(len(run["losses"]) == 1 and math.isfinite(run["losses"][0][1]),
           f"records: logged losses {run['losses']}")
     steps = _loader_steps(device, imported["npz"], "RecordImporter", run)
-    emit({"phase": "records", "targets": counts, "written": written, "read": read,
+    emit({"phase": "records", "targets": counts, "written": written,
           "steps": RECORD_STEPS, "batch": LOADER_BATCH, "logged_losses": run["losses"],
           "first_loss": steps["first_loss"], "test_oa": result.test_accuracy,
-          "gather_launches": 0, "cli_seconds": cli_seconds,
-          "step_seconds": steps["step_seconds"], "step_runs": steps["step_runs"],
-          "grss2013_step_seconds": grss["step_seconds"]})
+          "gather_launches": 0})
 
 
-def phase_tf_checkpoint(device, work: Path, root: Path, augmented: dict) -> dict:
+def phase_tf_checkpoint(device, work: Path, root: Path) -> dict:
     """The committed TF fixture (``tests/torch_fixtures/tf_cycle_gan_144``)
     at GRSS2013's declared ``shadow_gen_model/cycle_gan/model.ckpt-5000``,
     where ``gan_augmented`` had installed a params snapshot:
     ``build_shadow_creators`` imports it; 1,024 pixels shadow and de-shadow on
     the card as on the CPU, to 1e-5; the train CLI with
     ``--augment_data_with_shadow=cycle_gan`` for 100 steps: a shadowed share
-    of 0.25 to 0.35, a falling loss and the gather's launches; the reader's
-    seconds and the step beside ``gan_augmented``'s."""
+    of 0.25 to 0.35, a falling loss and the gather's launches."""
     loader = GRSS2013DataLoader(str(root))
     target = Path(loader.get_model_base_dir()) / loader.get_shadow_checkpoints()["cycle_gan"]
     shutil.rmtree(target)
     for path in TF_FIXTURE.iterdir():
         shutil.copy2(path, target.parent / path.name)
     check(is_tf_checkpoint(str(target)), f"{target} is not a TF checkpoint")
-    start = time.perf_counter()
     values = load_tf_checkpoint_values(str(target))
-    read_seconds = time.perf_counter() - start
     data, read = _read("GRSS2013DataLoader", root, LOADER_TRAIN_RATIO, LOADER_TEST_RATIO, device,
                        [])
-    start = time.perf_counter()
     creators = build_shadow_creators(data.loader, data.scene, NEIGHBORHOOD, device)
-    import_seconds = time.perf_counter() - start
     on_cpu = build_shadow_creators(data.loader, data.scene, NEIGHBORHOOD, "cpu")
     check(sorted(creators) == sorted(on_cpu) == ["cycle_gan", "simple"],
           f"shadow creators: {sorted(creators)}, on the CPU {sorted(on_cpu)}")
@@ -2198,14 +1731,11 @@ def phase_tf_checkpoint(device, work: Path, root: Path, augmented: dict) -> dict
     info = AugmentationInfo(shadow_struct=creators["cycle_gan"], perform_shadow_augmentation=True,
                             augmentation_random_threshold=SHADOW_THRESHOLD)
     shadow = _shadow_checks(data, info, device, run)
-    step = _augmented_step(data, info, device)
     emit({"phase": "tf_checkpoint", "fixture": str(TF_FIXTURE.relative_to(ROOT)),
           "installed_at": str(target.relative_to(root)), "variables": len(values),
           "fixture_bytes": sum(p.stat().st_size for p in TF_FIXTURE.iterdir()),
-          "read_seconds": read_seconds, "import_seconds": import_seconds,
           "translate_abs_err_vs_cpu": errors, "checked": TF_TRANSLATE_CHECKS,
-          "threshold": SHADOW_THRESHOLD, **shadow, "step": step,
-          "gan_augmented_step": augmented["step"], "run": _augmented_record(run)})
+          "threshold": SHADOW_THRESHOLD, **shadow, "run": _augmented_record(run)})
     return {"steps": run["gather_launches"]["steps"],
             "eval_batches": run["gather_launches"]["eval_batches"]}
 
@@ -2230,9 +1760,7 @@ def _resave_jax_step(step_dir: Path, tree: dict, log_dir: Path) -> dict:
     metadata = json.loads((step_dir / "default" / ITEM_METADATA).read_text())["tree_metadata"]
     value_types = {name: entry["value_metadata"]["value_type"]
                    for name, entry in metadata.items()}
-    start = time.perf_counter()
     resaved = Path(save_checkpoint(str(log_dir), _as_jax_held(tree, value_types)))
-    seconds = time.perf_counter() - start
     check(resaved.name == step_dir.name, f"re-saved as step {resaved.name}")
     ours = json.loads((resaved / "default" / ITEM_METADATA).read_text())["tree_metadata"]
     check(list(ours.items()) == list(metadata.items()),
@@ -2245,7 +1773,7 @@ def _resave_jax_step(step_dir: Path, tree: dict, log_dir: Path) -> dict:
     differ = [k for k in specs if ours_store.read(k) != theirs_store.read(k)]
     check(not differ, f"re-saved .zarray specs differ from JAX's: {differ[:5]}")
     check(_same_tree(tree, read_orbax(str(resaved))), "the re-saved arrays differ from JAX's")
-    return {"save_seconds": seconds, "leaves": len(metadata), "zarray_specs": len(specs),
+    return {"leaves": len(metadata), "zarray_specs": len(specs),
             "file_bytes": _file_bytes(resaved), "fixture_file_bytes": _file_bytes(step_dir),
             "array_bytes": tree_bytes(tree)}
 
@@ -2253,7 +1781,7 @@ def _resave_jax_step(step_dir: Path, tree: dict, log_dir: Path) -> dict:
 def phase_jax_log_dir(device, work: Path, root: Path, data) -> dict:
     """The JAX package's orbax checkpoints (committed under
     ``tests/torch_fixtures``, as the JAX package wrote them) read by the
-    port: the decode's seconds and bytes; the step re-saved by the port's
+    port: the decode's bytes; the step re-saved by the port's
     writer, with JAX's metadata, specs and arrays; the infer CLI on a log dir holding
     the JAX step, whose map must be JAX's but at the pixels whose two top
     logits JAX found within 1e-4; the train CLI resuming the JAX step for
@@ -2265,11 +1793,8 @@ def phase_jax_log_dir(device, work: Path, root: Path, data) -> dict:
     saved = int(step_dir.name)
     decode, trees = {}, {}
     for name, path in (("train_state", step_dir), ("gan_params", JAX_GAN_FIXTURE / "gan_params")):
-        start = time.perf_counter()
         trees[name] = read_orbax(str(path))
-        decode[name] = {"seconds": time.perf_counter() - start,
-                        "file_bytes": _file_bytes(path),
-                        "array_bytes": tree_bytes(trees[name])}
+        decode[name] = {"file_bytes": _file_bytes(path), "array_bytes": tree_bytes(trees[name])}
 
     resaved = _resave_jax_step(step_dir, trees["train_state"], work / "jax_resaved")
 
@@ -2284,12 +1809,10 @@ def phase_jax_log_dir(device, work: Path, root: Path, data) -> dict:
     shutil.copytree(JAX_FIXTURE / "checkpoints", log_dir / "checkpoints")
     out_dir = work / "jax_all"
     reset_launches()
-    start = time.perf_counter()
     infer_for_classification.main([
         "--loader_name=SyntheticDataLoader", f"--path={SPEC}", f"--neighborhood={NEIGHBORHOOD}",
         f"--algorithm_param_path={PARAMS_PATH}", f"--base_log_path={log_dir}",
         f"--output_path={out_dir}", "--domain=all", "--device=cuda"])
-    infer_seconds = time.perf_counter() - start
     bands = window_gather_cuda.launches
     _note_main_path()
     check(bands == math.ceil(HEIGHT / BATCH_ROWS), f"infer CLI on the JAX step: {bands} launches")
@@ -2303,9 +1826,7 @@ def phase_jax_log_dir(device, work: Path, root: Path, data) -> dict:
     n_test, n_validation = (data.targets(split).shape[0] for split in ("test", "validation"))
     expected = _expected_launches(saved, saved + JAX_RESUMED_STEPS, n_test, n_validation)
     reset_launches()
-    start = time.perf_counter()
     result, out = _run_train_cli(_train_args(log_root, saved + JAX_RESUMED_STEPS))
-    train_seconds = time.perf_counter() - start
     launches = window_gather_cuda.launches
     by_batch = _note_main_path()
     resumed = [line for line in out.splitlines() if line.startswith("Resuming")]
@@ -2352,10 +1873,9 @@ def phase_jax_log_dir(device, work: Path, root: Path, data) -> dict:
     run = _augmented_cli(work, root, "cycle_gan", JAX_AUGMENTED_STEPS, read["targets"])
     emit({"phase": "jax_log_dir", "fixture": str(JAX_FIXTURE.relative_to(ROOT)),
           "gan_fixture": str(JAX_GAN_FIXTURE.relative_to(ROOT)), "saved_step": saved,
-          "decode": decode, "resaved": resaved,
-          "infer_cli_seconds": infer_seconds, "infer_launches": bands,
+          "decode": decode, "resaved": resaved, "infer_launches": bands,
           "pixels_differ": int(differ.sum()), "jax_ties": int(ties.sum()),
-          "train_cli_seconds": train_seconds, "resumed_line": resumed[0],
+          "resumed_line": resumed[0],
           "gather_launches": launches, "expected_launches": expected,
           "resumed_loss": result.loss, "test_oa": result.test_accuracy,
           "first_step_loss": first, "first_step_rel_diff": rel,
@@ -2377,18 +1897,16 @@ def phase_jax_log_dir(device, work: Path, root: Path, data) -> dict:
 def _card_and_cpu(device, main, args: list, out: Path, record: dict, name: str) -> dict:
     """A tool's ``main`` on the card (``device``), then on the CPU, each into
     its own output directory under ``out`` and after the same ``np.random``
-    seed; results under ``card`` and ``cpu``. ``record`` collects the seconds
-    of each and the card run's lines naming a figure it did not write (the
-    card's machine has no matplotlib)."""
+    seed; results under ``card`` and ``cpu``. ``record`` collects the card
+    run's lines naming a figure it did not write (the card's machine has no
+    matplotlib)."""
     results = {}
     for side, where in (("card", device.type), ("cpu", "cpu")):
         target = out / f"{name}_{side}"
         target.mkdir(parents=True)
         np.random.seed(SEED)
-        start = time.perf_counter()
         results[side], printed = _run_quiet(main, [*args, f"--output_path={target}",
                                                    f"--device={where}"])
-        record["seconds"][f"{name}_{side}"] = time.perf_counter() - start
         results[f"{side}_dir"] = target
         if side == "card":
             record["unwritten"] += [line for line in printed.splitlines()
@@ -2415,7 +1933,7 @@ def phase_utilities(device, work: Path, roots: dict, train_log_dir: Path) -> Non
     loader phases wrote: each result on the card against the same tool's on
     the CPU."""
     out = work / "utilities"
-    record: dict = {"seconds": {}, "unwritten": []}
+    record: dict = {"unwritten": []}
     # GRSS2013 <-> GRSS2018 registration: both datasets under one path
     both = work / "registration"
     both.mkdir()
@@ -2490,11 +2008,7 @@ def phase_classic_ml(device, work: Path) -> dict:
             f"--output_path={out}"]
     np.random.seed(SEED)
     reset_launches()
-    torch.cuda.reset_peak_memory_stats(device)
-    start = time.perf_counter()
     (run,), _ = _run_quiet(classic_ml_trainer.main, [*args, f"--device={device.type}"])
-    cli_seconds = time.perf_counter() - start
-    cli_peak_bytes = torch.cuda.max_memory_allocated(device)
     by_batch = _note_main_path()
     check(dict(by_batch) == expected,
           f"classic_ml: gather launches by batch {dict(by_batch)}, expected {expected}")
@@ -2532,10 +2046,8 @@ def phase_classic_ml(device, work: Path) -> dict:
     forest = run["estimator"]
     np.random.seed(SEED)
     loader.load_samples(0.1, 0)
-    start = time.perf_counter()
     cpu_forest = RandomForestClassifier(n_estimators=CLASSIC_CPU_TREES, max_features=24).fit(
         run["train_x"].cpu(), run["train_y"])
-    cpu_fit_seconds = time.perf_counter() - start
     card_head = RandomForestClassifier(n_estimators=CLASSIC_CPU_TREES, max_features=24)
     card_head.classes_, card_head.trees = forest.classes_, forest.trees[:CLASSIC_CPU_TREES]
     check(_same_forest(card_head, cpu_forest),
@@ -2545,16 +2057,14 @@ def phase_classic_ml(device, work: Path) -> dict:
           "classic_ml: validation predictions differ, card against CPU")
     nodes = [t.feature.shape[0] for t in forest.trees]
     # the SVM grid on a small scene, card against CPU
-    grids, grid_seconds = {}, {}
+    grids = {}
     for side, where in (("card", device.type), ("cpu", "cpu")):
         np.random.seed(SEED)
         reset_launches()
-        start = time.perf_counter()
         (grid_run,), _ = _run_quiet(classic_ml_trainer.main, [
             "--loader_name=SyntheticDataLoader", f"--path={CLASSIC_GRID_SPEC}",
             "--neighborhood=0", "--hyperparamopt", f"--base_log_path={work / ('grid_' + side)}",
             f"--device={where}"])
-        grid_seconds[side] = time.perf_counter() - start
         grids[side] = grid_run["grid"]
         if side == "card":
             _note_main_path()
@@ -2565,24 +2075,20 @@ def phase_classic_ml(device, work: Path) -> dict:
           f"{grids['cpu']['best_params']}, largest score gap {gaps.max()}")
     emit({"phase": "classic_ml", "targets": {k: int(v.shape[0]) for k, v in targets.items()},
           "gather_launches_by_batch": {str(b): n for b, n in sorted(by_batch.items())},
-          "validation_oa": oa, "cli_seconds": cli_seconds, "fit_seconds": run["fit_seconds"],
-          "predict_seconds": run["predict_seconds"],
-          "full_scene_seconds": run["full_scene_seconds"], "cli_peak_allocated_bytes":
-          cli_peak_bytes, "cpu_trees": CLASSIC_CPU_TREES, "cpu_fit_seconds": cpu_fit_seconds,
-          "forest_nodes": sum(nodes), "forest_nodes_per_tree": [min(nodes), max(nodes)],
+          "validation_oa": oa, "cpu_trees": CLASSIC_CPU_TREES, "forest_nodes": sum(nodes),
+          "forest_nodes_per_tree": [min(nodes), max(nodes)],
           "forest_depth": max(t.depth for t in forest.trees),
           "grid_best": {k: float(v) for k, v in grids["card"]["best_params"].items()},
           "grid_best_score": grids["card"]["best_score"],
-          "grid_score_gap": float(gaps.max()), "grid_cli_seconds": grid_seconds})
+          "grid_score_gap": float(gaps.max())})
     return {"scene": scene_dev, "coords": coords, "scene_coords": batches,
             "by_batch": dict(by_batch)}
 
 
 def _rank_train_cli(task: dict, device) -> dict:
     reset_launches()
-    start = time.perf_counter()
     result, _ = _run_train_cli(task["args"])
-    return {"seconds": time.perf_counter() - start, "launches": window_gather_cuda.launches,
+    return {"launches": window_gather_cuda.launches,
             "by_batch": {str(b): n for b, n in window_gather_cuda.launches_by_batch.items()},
             "loss": result.loss, "test_oa": result.test_accuracy, "pid": os.getpid(),
             "backend": torch.distributed.get_backend() if torch.distributed.is_initialized()
@@ -2592,29 +2098,35 @@ def _rank_train_cli(task: dict, device) -> dict:
 def _rank_infer_cli(task: dict, device) -> dict:
     (log_dir,) = [p for p in Path(task["log_root"]).iterdir() if p.is_dir()]
     reset_launches()
-    start = time.perf_counter()
     _run_quiet(infer_for_classification.main, [*task["args"], f"--base_log_path={log_dir}"])
-    return {"seconds": time.perf_counter() - start, "launches": window_gather_cuda.launches,
+    return {"launches": window_gather_cuda.launches,
             "by_batch": {str(b): n for b, n in window_gather_cuda.launches_by_batch.items()}}
+
+
+def _device_kernels(prof) -> dict:
+    """Calls of each device kernel in a profiled window; the ranges that
+    ``record_function`` annotates on the device timeline are not kernels and
+    are left out."""
+    return {e.key: e.count for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)}
 
 
 def _collective_rows(prof) -> dict:
     """All-reduces a profiled window holds: the host op (gloo or NCCL) and
-    NCCL's device kernels, with their counts and times."""
+    NCCL's device kernels, with their counts."""
     host = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CPU
             and "all_reduce" in e.key.lower()]
-    nccl = [row for row in _device_rows(prof) if "nccl" in row[0].lower()]
     busiest = max(host, key=lambda e: e.count, default=None)
     return {"host_op": busiest.key if busiest else None,
             "host_calls": busiest.count if busiest else 0,
-            "host_ms": busiest.cpu_time_total / 1e3 if busiest else 0.0,
-            "nccl_kernel_calls": sum(r[2] for r in nccl), "nccl_device_ms": sum(r[1] for r in nccl)}
+            "nccl_kernel_calls": sum(n for name, n in _device_kernels(prof).items()
+                                     if "nccl" in name.lower())}
 
 
-def _rank_steps(task: dict, device) -> dict:
-    """The HYPELCNN step at full width through the trainer on the rank's
-    mesh: the first step's loss, the step time (median of 3 runs after 5
-    warm-up steps), and the kernels and collectives of traced steps."""
+def _rank_first_step(task: dict, device, steps: int) -> tuple:
+    """The HYPELCNN trainer at full width on the rank's mesh, its state after
+    the first step, its tables of ``steps`` steps and the first step's loss."""
     data = _training_data()
     params = {**load_algorithm_params(HYPELCNNModel().default_params(), str(PARAMS_PATH)),
               "batch_size": TRAIN_BATCH, **task.get("params", {})}
@@ -2624,20 +2136,31 @@ def _rank_steps(task: dict, device) -> dict:
         data_shape=data.data_shape, device=device, mesh=create_mesh(),
         augmentation_info=_augmentation() if task["augment"] else None)
     state = trainer.init_state()
-    timed, traced = DIST_TIMED_STEPS, DIST_PROFILED_STEPS
-    tables = trainer.training_tables(6 + 3 * timed + traced, TRAIN_BATCH)
-    loss0 = float(trainer.train_step(state, tables, 0))
-    _timed_steps(trainer, state, tables, 1, 5)
-    runs = [_timed_steps(trainer, state, tables, 6 + i * timed, timed) / timed for i in range(3)]
+    tables = trainer.training_tables(steps, TRAIN_BATCH)
+    return trainer, state, tables, float(trainer.train_step(state, tables, 0))
+
+
+def _rank_loss0(task: dict, device) -> dict:
+    """The HYPELCNN step's first loss through the trainer on the rank's mesh."""
+    return {"loss0": _rank_first_step(task, device, 1)[3]}
+
+
+def _rank_steps(task: dict, device) -> dict:
+    """The HYPELCNN step at full width through the trainer on the rank's
+    mesh: the first step's loss, then the kernels and collectives of traced
+    steps after 5 warm-up steps."""
+    traced = DIST_TRACED_STEPS
+    trainer, state, tables, loss0 = _rank_first_step(task, device, 6 + traced)
+    for step in range(1, 6):
+        trainer.train_step(state, tables, step)
     activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=activities) as prof:
-        for step in range(6 + 3 * timed, 6 + 3 * timed + traced):
+        for step in range(6, 6 + traced):
             trainer.train_step(state, tables, step)
         torch.cuda.synchronize()
-    rows = _device_rows(prof)
-    return {"loss0": loss0, "step_seconds": statistics.median(runs), "step_runs": runs,
-            "launches_per_step": sum(r[2] for r in rows) / traced,
-            "kernels": {name: count / traced for name, _, count in rows},
+    kernels = _device_kernels(prof)
+    return {"loss0": loss0, "launches_per_step": sum(kernels.values()) / traced,
+            "kernels": {name: count / traced for name, count in kernels.items()},
             "collectives": _collective_rows(prof), "traced_steps": traced}
 
 
@@ -2656,13 +2179,10 @@ def _cap_module(device, state_dict=None):
 def _rank_cap_sweep(task: dict, device) -> dict:
     module, _ = _cap_module(device, torch.load(task["state_dict"], weights_only=True))
     scene = SyntheticDataLoader(SPEC).load_data(NEIGHBORHOOD, True)
-    torch.cuda.synchronize()
-    start = time.perf_counter()
     swept = predict_full_scene(module, scene, device=device, mesh=create_mesh())
-    seconds = time.perf_counter() - start
     if dist_rank() == 0:
         np.save(task["out"], swept)
-    return {"seconds": seconds}
+    return {}
 
 
 def _rank_gan(task: dict, device) -> dict:
@@ -2673,17 +2193,13 @@ def _rank_gan(task: dict, device) -> dict:
     trainer = get_trainer_dict({}, GAN_BANDS, task["steps"], mesh=mesh)["cycle_gan"]
     state = trainer.init_state(device, torch.Generator().manual_seed(SEED))
     losses = []
-    torch.cuda.synchronize()
-    start = time.perf_counter()
     for step in range(task["steps"]):
         x = torch.from_numpy(batches[f"x{step}"]).to(device)
         y = torch.from_numpy(batches[f"y{step}"]).to(device)
         out = trainer.train_step(state, x, y,
                                  generator=torch.Generator(device=device).manual_seed(step))
         losses.append(out["generator_loss"])
-    torch.cuda.synchronize()
-    return {"losses": [float(v) for v in losses],
-            "step_seconds": (time.perf_counter() - start) / task["steps"]}
+    return {"losses": [float(v) for v in losses]}
 
 
 def _tp_trainer(params_path: Path, device, mesh, log_dir=None) -> ClassificationTrainer:
@@ -2705,24 +2221,23 @@ def _launches() -> dict:
 
 def _rank_tp(task: dict, device) -> dict:
     """HYPELCNN through the trainer on a (data, model) mesh of every rank,
-    from the seed's init: ``steps`` steps whose losses are read, ``timed``
-    more timed, with the model-axis collectives counted; then, when asked,
+    from the seed's init: ``steps`` steps whose losses are read, ``counted``
+    more, over which the model-axis collectives are counted; then, when asked,
     the full-width checkpoint (the chief writes it), a test drain and a
     sweep of ``sweep_spec``'s bands, whose map the chief saves."""
     mesh = create_mesh(task["model_parallel"])
     trainer = _tp_trainer(Path(task["params_path"]), device, mesh)
     reset_launches()
-    torch.cuda.reset_peak_memory_stats()
     state = trainer.init_state()
-    steps, timed = task["steps"], task["timed_steps"]
-    tables = trainer.training_tables(steps + timed, TRAIN_BATCH)
+    steps, counted = task["steps"], task["counted_steps"]
+    tables = trainer.training_tables(steps + counted, TRAIN_BATCH)
     losses = [float(trainer.train_step(state, tables, step)) for step in range(steps)]
     gathers, sums = mesh.channel_gathers, mesh.gradient_sums
-    step_seconds = _timed_steps(trainer, state, tables, steps, timed) / timed
-    out = {"losses": losses, "step_seconds": step_seconds, "sharded": sorted(state.sharded),
-           "channel_gathers_per_step": (mesh.channel_gathers - gathers) / timed,
-           "gradient_sums_per_step": (mesh.gradient_sums - sums) / timed,
-           "step_peak_bytes": torch.cuda.max_memory_allocated(),
+    for step in range(steps, steps + counted):
+        trainer.train_step(state, tables, step)
+    out = {"losses": losses, "sharded": sorted(state.sharded),
+           "channel_gathers_per_step": (mesh.channel_gathers - gathers) / counted,
+           "gradient_sums_per_step": (mesh.gradient_sums - sums) / counted,
            "data_rank": mesh.data_rank, "model_rank": mesh.model_rank,
            "backend": torch.distributed.get_backend()}
     if task.get("log_dir"):
@@ -2730,19 +2245,13 @@ def _rank_tp(task: dict, device) -> dict:
         if dist_rank() == 0:
             save_checkpoint(task["log_dir"], tree)
         mesh.barrier()
-        start = time.perf_counter()
         out["test"] = trainer.evaluate(state, "test").confusion.tolist()
-        out["drain_seconds"] = time.perf_counter() - start
         scene = SyntheticDataLoader(task["sweep_spec"]).load_data(NEIGHBORHOOD, True)
         gathers = mesh.channel_gathers
-        torch.cuda.synchronize()
-        start = time.perf_counter()
         swept = predict_full_scene(state.module, scene, device=device, mesh=mesh)
-        out["sweep_seconds"] = time.perf_counter() - start
         out["sweep_channel_gathers"] = mesh.channel_gathers - gathers
         if dist_rank() == 0:
             np.save(task["map"], swept)
-    out["peak_bytes"] = torch.cuda.max_memory_allocated()
     out["launches"] = _launches()
     return out
 
@@ -2766,21 +2275,20 @@ def _rank_search(task: dict, device) -> dict:
     cwd = os.getcwd()
     os.chdir(task["workdir"])
     reset_launches()
-    start = time.perf_counter()
     try:
         study, _ = _run_train_cli(task["args"])
     finally:
         os.chdir(cwd)
         train_for_classification.perform_an_episode = episode
         tune_search.sqlite3.connect = connect
-    return {"seconds": time.perf_counter() - start, "episodes": episodes,
+    return {"episodes": episodes,
             "connects": len(connects), "trials": study.trials, "launches": _launches(),
             "total_launches": window_gather_cuda.launches}
 
 
 RANK_TASKS = {"train_cli": _rank_train_cli, "infer_cli": _rank_infer_cli, "steps": _rank_steps,
-              "cap_sweep": _rank_cap_sweep, "gan": _rank_gan, "tp": _rank_tp,
-              "search": _rank_search}
+              "loss0": _rank_loss0, "cap_sweep": _rank_cap_sweep, "gan": _rank_gan,
+              "tp": _rank_tp, "search": _rank_search}
 
 
 def rank_main(spec_path: str) -> int:
@@ -2919,8 +2427,8 @@ def phase_dist_world1(device, work: Path, data) -> dict:
     augmentation) in one plain process and in one NCCL rank that torchrun
     starts, both under cuDNN's and PyTorch's deterministic algorithms: the
     logged losses and the final checkpoints equal bit for bit (a mesh of one
-    rank runs no collective), the gather's exact launches, and the step of
-    each, whose kernels may differ only by collectives."""
+    rank runs no collective), the gather's exact launches, and the traced
+    step of each, whose kernels may differ only by collectives."""
     counts = {split: data.targets(split).shape[0] for split in ("training", "test", "validation")}
     root = work / "world1"
     runs = {}
@@ -2961,9 +2469,6 @@ def phase_dist_world1(device, work: Path, data) -> dict:
     record = {"phase": "dist_world1", "steps": DIST_WORLD1_STEPS, "batch": TRAIN_BATCH,
               "logged_losses": losses["plain"], "losses_equal": True, "weights_equal": True,
               "gather_launches": expected, "backend": nccl["cli"]["backend"],
-              "cli_seconds": {n: r["cli"]["seconds"] for n, r in runs.items()},
-              "step_seconds": {n: r["steps"]["step_seconds"] for n, r in runs.items()},
-              "step_runs": {n: r["steps"]["step_runs"] for n, r in runs.items()},
               "launches_per_step": {n: r["steps"]["launches_per_step"] for n, r in runs.items()},
               "kernels_added_per_step": added,
               "collectives": nccl["steps"]["collectives"],
@@ -3007,7 +2512,7 @@ def phase_dist_two_ranks(device, work: Path, data, pairs: dict) -> dict:
     log_root, out_dir = root / "log", root / "infer"
     gan_task = {"kind": "gan", "name": "gan", "batches": str(root / "gan_batches.npz"),
                 "steps": DIST_GAN_STEPS}
-    steps_task = {"kind": "steps", "name": "steps", "augment": True}
+    steps_task = {"kind": "loss0", "name": "steps", "augment": True}
     ranks = _launch_ranks(root, [
         {"kind": "train_cli", "name": "cli",
          "args": _dist_train_args(log_root, DIST_STEPS, True, DIST_CHECKPOINT_EVERY)},
@@ -3049,7 +2554,7 @@ def phase_dist_two_ranks(device, work: Path, data, pairs: dict) -> dict:
 
     # one rank: the first step, the infer map, CAP's sweep, cycle_gan's steps
     with _deterministic():
-        one = _rank_steps(steps_task, device)
+        one = _rank_loss0(steps_task, device)
     rel0 = [abs(r["steps"]["loss0"] - one["loss0"]) / one["loss0"] for r in ranks]
     check(max(rel0) < 1e-4, f"step 1 loss: two ranks {[r['steps']['loss0'] for r in ranks]} "
                             f"against one {one['loss0']}")
@@ -3107,21 +2612,9 @@ def phase_dist_two_ranks(device, work: Path, data, pairs: dict) -> dict:
                              "rel": rel0},
               "gather_launches_per_rank": expected, "test_oa": chief["cli"]["test_oa"],
               "checkpoints": saved, "log_dir_files": names,
-              "cli_seconds": [r["cli"]["seconds"] for r in ranks],
-              "step_seconds": {"two_ranks": [r["steps"]["step_seconds"] for r in ranks],
-                               "one_rank": one["step_seconds"],
-                               "note": "two ranks share one card through gloo's host "
-                                       "staging: not a measure of scaling"},
-              "launches_per_step": {"two_ranks": [r["steps"]["launches_per_step"]
-                                                  for r in ranks],
-                                    "one_rank": one["launches_per_step"]},
-              "collectives": [r["steps"]["collectives"] for r in ranks],
-              "infer": {**infer, "rank_seconds": [r["infer"]["seconds"] for r in ranks]},
-              "cap_sweep": {**cap, "rank_seconds": [r["cap"]["seconds"] for r in ranks]},
+              "infer": infer, "cap_sweep": cap,
               "gan": {"losses": chief["gan"]["losses"], "one_rank": gan_one["losses"],
-                      "max_rel": max(gan_rel),
-                      "step_seconds": [r["gan"]["step_seconds"] for r in ranks],
-                      "one_rank_step_seconds": gan_one["step_seconds"]},
+                      "max_rel": max(gan_rel)},
               "resume": {"resumed_loss": resumed.loss, "uninterrupted_loss": straight.loss,
                          "rel": resume_rel}}
     emit(record)
@@ -3140,15 +2633,15 @@ def phase_tp_two_ranks(device, work: Path, data) -> dict:
     same init (step 1 within 1e-4); its full-width checkpoint resumed in one
     rank (a test drain and a sweep of 3 bands on those weights equal the
     ranks' but for top-two ties, and 5 more steps within 1e-3 of an
-    uninterrupted one-rank run); the 13 sharded kernels; each rank's step
-    time, model-axis collectives a step and peak memory."""
+    uninterrupted one-rank run); the 13 sharded kernels; each rank's
+    model-axis collectives a step."""
     root = work / "tp_two_ranks"
     root.mkdir(parents=True)
     log_dir, map_path = root / "log", root / "tp_map.npy"
-    saved = TP_STEPS + TP_TIMED_STEPS
+    saved = TP_STEPS + TP_COUNTED_STEPS
     ranks = _launch_ranks(root, [{
         "kind": "tp", "name": "tp", "model_parallel": 2, "params_path": str(TP_PARAMS_PATH),
-        "steps": TP_STEPS, "timed_steps": TP_TIMED_STEPS, "log_dir": str(log_dir),
+        "steps": TP_STEPS, "counted_steps": TP_COUNTED_STEPS, "log_dir": str(log_dir),
         "sweep_spec": TP_SWEEP_SPEC, "map": str(map_path)}], nproc=2, deterministic=True)
     chief, other = (r["tp"] for r in ranks)
     check(chief["backend"] == other["backend"] == "gloo", f"TP ranks ran {chief['backend']}")
@@ -3165,8 +2658,6 @@ def phase_tp_two_ranks(device, work: Path, data) -> dict:
 
     with _deterministic():
         trainer = _tp_trainer(TP_PARAMS_PATH, device, create_mesh())
-        allocated = torch.cuda.memory_allocated()
-        torch.cuda.reset_peak_memory_stats()
         state = trainer.init_state()
         full = state.module.state_dict()
         sharded = sorted(tp_sharded_keys(full, 2))
@@ -3177,9 +2668,8 @@ def phase_tp_two_ranks(device, work: Path, data) -> dict:
         one = [float(trainer.train_step(state, tables, step)) for step in range(TP_STEPS)]
         rel = [abs(a - b) / abs(b) for a, b in zip(chief["losses"], one)]
         check(rel[0] < 1e-4, f"TP step 1 loss {chief['losses'][0]} against one rank's {one[0]}")
-        one_seconds = _timed_steps(trainer, state, tables, TP_STEPS, TP_TIMED_STEPS) / \
-            TP_TIMED_STEPS
-        one_peak = torch.cuda.max_memory_allocated() - allocated
+        for step in range(TP_STEPS, saved):
+            trainer.train_step(state, tables, step)
 
         # the ranks' checkpoint at full width, resumed in one rank
         restored = restore_checkpoint(str(log_dir))
@@ -3208,19 +2698,10 @@ def phase_tp_two_ranks(device, work: Path, data) -> dict:
           "backend": "gloo", "config": str(TP_PARAMS_PATH.relative_to(ROOT)),
           "global_batch": TRAIN_BATCH, "sharded_kernels": len(sharded), "sharded": sharded,
           "losses": {"ranks": chief["losses"], "one_rank": one, "rel": rel},
-          "step_seconds": {"ranks": [r["step_seconds"] for r in (chief, other)],
-                           "one_rank": one_seconds,
-                           "note": "two ranks share one card through gloo's host staging: "
-                                   "not a measure of scaling"},
           "channel_gathers_per_step": [r["channel_gathers_per_step"] for r in (chief, other)],
           "gradient_sums_per_step": [r["gradient_sums_per_step"] for r in (chief, other)],
-          "step_peak_bytes": [r["step_peak_bytes"] for r in (chief, other)],
-          "peak_bytes": [r["peak_bytes"] for r in (chief, other)],
-          "one_rank_step_peak_bytes": one_peak,
           "checkpoint_step": saved, "drain_windows_differ": drain_differ,
-          "drain_seconds": [r["drain_seconds"] for r in (chief, other)],
           "sweep": {**sweep, "bands": TP_SWEEP_BANDS,
-                    "seconds": [r["sweep_seconds"] for r in (chief, other)],
                     "channel_gathers": chief["sweep_channel_gathers"]},
           "resume": {"resumed": after, "uninterrupted": straight, "max_rel": resume_rel},
           "gather_launches_per_rank": expected})
@@ -3231,12 +2712,12 @@ def phase_tp_four_ranks(device, work: Path) -> dict:
     """A (2, 2) mesh, four ranks on the one card over gloo, HYPELCNN at its
     published 480 width, global batch 48: each data index's 24 windows,
     the 8 sharded kernels, the losses against one rank on the card (step 1
-    within 1e-4), each rank's step time and collectives."""
+    within 1e-4), each rank's collectives."""
     root = work / "tp_four_ranks"
-    steps = TP4_STEPS + TP4_TIMED_STEPS
+    steps = TP4_STEPS + TP4_COUNTED_STEPS
     ranks = [r["tp"] for r in _launch_ranks(root, [{
         "kind": "tp", "name": "tp", "model_parallel": 2, "params_path": str(PARAMS_PATH),
-        "steps": TP4_STEPS, "timed_steps": TP4_TIMED_STEPS}], nproc=4, deterministic=True)]
+        "steps": TP4_STEPS, "counted_steps": TP4_COUNTED_STEPS}], nproc=4, deterministic=True)]
     check([(r["data_rank"], r["model_rank"]) for r in ranks] == [(0, 0), (0, 1), (1, 0), (1, 1)],
           "the (2, 2) mesh's ranks are not laid out as JAX lays out its devices")
     check(all(r["losses"] == ranks[0]["losses"] for r in ranks), "the four ranks disagree")
@@ -3260,10 +2741,8 @@ def phase_tp_four_ranks(device, work: Path) -> dict:
           "backend": ranks[0]["backend"], "global_batch": TRAIN_BATCH,
           "sharded_kernels": len(sharded),
           "losses": {"ranks": ranks[0]["losses"], "one_rank": one, "rel": rel},
-          "step_seconds": [r["step_seconds"] for r in ranks],
           "channel_gathers_per_step": [r["channel_gathers_per_step"] for r in ranks],
           "gradient_sums_per_step": [r["gradient_sums_per_step"] for r in ranks],
-          "step_peak_bytes": [r["step_peak_bytes"] for r in ranks],
           "gather_launches_per_rank": expected})
     return {"steps": 4 * steps}
 
@@ -3317,7 +2796,6 @@ def phase_search_two_ranks(device, work: Path, data) -> dict:
           "global_batch": TRAIN_BATCH,
           "trials": [{"number": r[1], "value": r[2], "params": json.loads(r[3])} for r in rows],
           "episodes": chief["episodes"], "sqlite_connections": [chief["connects"], 0],
-          "rank_seconds": [chief["seconds"], other["seconds"]],
           "gather_launches_per_rank": {key: 2 * value for key, value in expected.items()}})
     share_steps = 2 * 2 * expected["steps"]
     return {"share_steps": share_steps, "share_evals": 2 * 2 * expected["eval_batches"]}
@@ -3326,58 +2804,41 @@ def phase_search_two_ranks(device, work: Path, data) -> dict:
 def phase_bf16(device, work: Path, data, train, families: dict) -> dict:
     """``compute_dtype: "bfloat16"``: HYPELCNN's published JSON so changed
     through the train CLI (100 steps, the ``train`` phase's augmentation),
-    the ``train`` phase's checkpoint swept in bfloat16 against float32, the
-    step in each, and CONCNN and DUALCNN 3 steps card against CPU."""
+    the ``train`` phase's checkpoint swept in bfloat16 against float32, and
+    CONCNN and DUALCNN 3 steps card against CPU."""
     published = json.loads(PARAMS_PATH.read_text())
     params_path = work / "alg_param_hypelcnn_bf16.json"
     params_path.write_text(json.dumps({**published, "compute_dtype": "bfloat16"}))
     counts = {split: data.targets(split).shape[0] for split in ("training", "test", "validation")}
     log_root = work / "bf16_log"
     reset_launches()
-    start = time.perf_counter()
     result, _ = _run_train_cli(_dist_train_args(log_root, BF16_STEPS, True, BF16_STEPS,
                                                 params_path))
-    cli_seconds = time.perf_counter() - start
     launches = window_gather_cuda.launches
     by_batch = _note_main_path()
     gather = _check_launches("bf16", by_batch, launches, counts, BF16_STEPS, TRAIN_BATCH)
     (log_dir,) = [p for p in log_root.iterdir() if p.is_dir()]
     logged = _logged_losses(log_dir)
 
-    # the step in float32 and in bfloat16, in turns
+    # the CLI's first step again, in bfloat16
     params = {**load_algorithm_params(HYPELCNNModel().default_params(), str(PARAMS_PATH)),
               "batch_size": TRAIN_BATCH}
-    trainers = {dtype: _trainer(data, {**params, "compute_dtype": dtype}, device,
-                                _augmentation()) for dtype in ("float32", "bfloat16")}
-    states = {dtype: t.init_state() for dtype, t in trainers.items()}
-    tables = {dtype: t.training_tables(11 + 2 * BF16_TIMED_STEPS, TRAIN_BATCH)
-              for dtype, t in trainers.items()}
-    loss0 = {dtype: float(trainers[dtype].train_step(states[dtype], tables[dtype], 0))
-             for dtype in trainers}
-    check(len(logged) == 1 and math.isfinite(logged[0][1]) and logged[0][1] < loss0["bfloat16"],
-          f"bfloat16 logged losses {logged} against step 1's {loss0['bfloat16']}")
-    for dtype in trainers:
-        _timed_steps(trainers[dtype], states[dtype], tables[dtype], 1, 10)
-    runs = {dtype: [] for dtype in trainers}
-    for turn, dtype in enumerate(("float32", "bfloat16", "bfloat16", "float32")):
-        start_step = 11 + (turn // 2) * BF16_TIMED_STEPS
-        runs[dtype].append(_timed_steps(trainers[dtype], states[dtype], tables[dtype],
-                                        start_step, BF16_TIMED_STEPS) / BF16_TIMED_STEPS)
+    trainer = _trainer(data, {**params, "compute_dtype": "bfloat16"}, device, _augmentation())
+    loss0 = float(trainer.train_step(trainer.init_state(), trainer.training_tables(1, TRAIN_BATCH),
+                                     0))
+    check(len(logged) == 1 and math.isfinite(logged[0][1]) and logged[0][1] < loss0,
+          f"bfloat16 logged losses {logged} against step 1's {loss0}")
 
     # the trained float32 weights swept in both types
     scene = SyntheticDataLoader(SPEC).load_data(NEIGHBORHOOD, True)
     trained = restore_checkpoint(str(train["log_dir"]))["state_dict"]
-    maps, sweep_seconds = {}, {}
+    maps = {}
     for dtype in ("float32", "bfloat16"):
         module = HYPELCNNModel().create_module(CLASSES, {**params, "compute_dtype": dtype},
                                                scene.get_data_shape())
         module.load_state_dict(trained)
         module.to(device)
-        predict_full_scene(module, scene, device=device)
-        torch.cuda.synchronize()
-        start = time.perf_counter()
         maps[dtype] = predict_full_scene(module, scene, device=device)
-        sweep_seconds[dtype] = time.perf_counter() - start
     agreement = float((maps["float32"] == maps["bfloat16"]).mean())
     check(agreement >= BF16_SWEEP_AGREEMENT,
           f"bfloat16 sweep agrees with float32 on {agreement} of the pixels")
@@ -3392,11 +2853,8 @@ def phase_bf16(device, work: Path, data, train, families: dict) -> dict:
               f"{family.model} in bfloat16: card against CPU {out['rel_diff']}")
         card_vs_cpu[family.model] = out
     record = {"phase": "bf16", "steps": BF16_STEPS, "logged_losses": logged,
-              "step1_loss": loss0, **gather, "cli_seconds": cli_seconds,
-              "test_oa": result.test_accuracy,
-              "step_seconds": {d: statistics.median(r) for d, r in runs.items()},
-              "step_runs": runs, "sweep_agreement": agreement,
-              "sweep_agreement_threshold": BF16_SWEEP_AGREEMENT, "sweep_seconds": sweep_seconds,
+              "step1_loss": loss0, **gather, "test_oa": result.test_accuracy,
+              "sweep_agreement": agreement, "sweep_agreement_threshold": BF16_SWEEP_AGREEMENT,
               "card_vs_cpu": card_vs_cpu}
     emit(record)
     return {"steps": gather["gather_launches"]["steps"],
@@ -3422,15 +2880,36 @@ def _event_times(fn, inputs) -> list:
     return [s.elapsed_time(e) for s, e in times]
 
 
+def _window_rows(coords: torch.Tensor, k: int) -> tuple:
+    """The scene rows and columns of every window's pixels, ``[B, k, 1]`` and
+    ``[B, 1, k]``: in range for a batch that lies inside the padded scene."""
+    offs = torch.arange(k, device=coords.device)
+    return (coords[:, 1, None] + offs)[:, :, None], (coords[:, 0, None] + offs)[:, None, :]
+
+
+def _gather_bytes(coords: torch.Tensor, k: int, channels: int, width: int) -> tuple:
+    """Bytes that the gather of one batch must move: each output float
+    written once; each distinct pixel of a scene ``width`` pixels wide that
+    the windows cover, and the coordinates, read once. (written, read)"""
+    ys, xs = _window_rows(coords, k)
+    distinct_pixels = int(torch.unique((ys * width + xs).reshape(-1)).numel())
+    batch = coords.shape[0]
+    return batch * k * k * channels * 4, distinct_pixels * channels * 4 + batch * 2 * 4
+
+
+def _bound_ms(moved_bytes: int, device_name: str):
+    """The least time in ms to move ``moved_bytes`` at the card's HBM
+    bandwidth (``portbench/counts.py``); None for a card not in its table."""
+    bandwidth = peak(device_name, "hbm_bytes_per_s")
+    return None if bandwidth is None else moved_bytes / bandwidth * 1e3
+
+
 def _gather_row(scene_dev, batches, launches: int, shape_note: str = "",
                 k: int = 2 * NEIGHBORHOOD + 1) -> dict:
     """One kernel row: the CUDA gather on each coordinate batch, bit-exact
     against the plain version, then timed beside it and the library call."""
-    hp, wp, channels = scene_dev.shape
-    offs = torch.arange(k, device=scene_dev.device)
-    # in-range indices for the library call: every batch lies inside the padded scene
-    index_pairs = [((c[:, 1, None] + offs)[:, :, None], (c[:, 0, None] + offs)[:, None, :])
-                   for c in batches]
+    _, wp, channels = scene_dev.shape
+    index_pairs = [_window_rows(c, k) for c in batches]
     before = (window_gather_cuda.launches, window_gather_cuda.launches_by_batch.copy())
     err = 0.0
     for coords in batches:
@@ -3443,19 +2922,16 @@ def _gather_row(scene_dev, batches, launches: int, shape_note: str = "",
                                               batches))
     library_ms = statistics.median(_event_times(lambda yx: scene_dev[yx[0], yx[1]], index_pairs))
     window_gather_cuda.launches, window_gather_cuda.launches_by_batch = before
-    # bytes the function must move for one batch: each output float written
-    # once, each distinct scene pixel it reads read once, the coordinates read once
     batch = batches[0].shape[0]
-    ys, xs = index_pairs[0]
-    distinct_pixels = int(torch.unique((ys * wp + xs).reshape(-1)).numel())
-    out_bytes = batch * k * k * channels * 4
-    read_bytes = distinct_pixels * channels * 4 + batch * 2 * 4
+    out_bytes, read_bytes = _gather_bytes(batches[0], k, channels, wp)
     return {"name": "window_gather", "route": "cuda",
             "source": "hypelcnn_tpu_torch/csrc/window_gather.cu",
             "replaces": "hypelcnn_tpu/ops/window_gather.py:183",
             "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": (out_bytes + read_bytes) / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
-            "library_ms": library_ms, "shape": f"{batch}x{k}x{k}x{channels} f32{shape_note}",
+            "bound_ms": _bound_ms(out_bytes + read_bytes,
+                                  torch.cuda.get_device_name(scene_dev.device)),
+            "bound_by": "bytes", "library_ms": library_ms,
+            "shape": f"{batch}x{k}x{k}x{channels} f32{shape_note}",
             "bytes_written": out_bytes, "bytes_read": read_bytes}
 
 
@@ -3493,21 +2969,22 @@ def phase_kernels(device, scene, launches: int, train, families: dict, loaders: 
     rows = [_gather_row(scene_dev, _bands(device), launches)]
     # the training path's shapes: the step's batch and the eval drain's
     tables, train_launches = train["tables"], train["launches"]
-    rows.append(_gather_row(scene_dev, _training_batches(tables, 0, 21),
+    rows.append(_gather_row(scene_dev, _training_batches(tables, 0, KERNEL_CALLS),
                             train_launches["steps"] + augmented_launches + later["steps"],
                             " (training step; with the GAN-augmented, search, TF-checkpoint,"
                             " JAX-resumed, world-1, one-rank resume and bfloat16 steps)"))
     train_coords = tables.coords
     gen = torch.Generator(device=device).manual_seed(SEED)
     eval_batches = [train_coords.index_select(0, torch.randperm(
-        train_coords.shape[0], generator=gen, device=device)[:EVAL_BATCH]) for _ in range(21)]
+        train_coords.shape[0], generator=gen, device=device)[:EVAL_BATCH])
+        for _ in range(KERNEL_CALLS)]
     rows.append(_gather_row(scene_dev, eval_batches,
                             train_launches["eval_batches"] + later["eval_batches"],
                             " (eval drain; its launches include the test drains' smaller batches"
                             " and the later one-rank train CLI runs' drains)"))
     # a rank's shares in the two-rank runs
     rows.append(_gather_row(scene_dev, [c[:TRAIN_BATCH // 2]
-                                        for c in _training_batches(tables, 0, 21)],
+                                        for c in _training_batches(tables, 0, KERNEL_CALLS)],
                             dist["share_steps"],
                             " (a rank's half of the training step: two ranks, global batch 48)"))
     rows.append(_gather_row(scene_dev, [c[:EVAL_BATCH // 2] for c in eval_batches],
@@ -3517,10 +2994,10 @@ def phase_kernels(device, scene, launches: int, train, families: dict, loaders: 
     rows.append(_gather_row(scene_dev, [c[:WIDTH * BATCH_ROWS // 2] for c in _bands(device)],
                             dist["half_bands"], " (a rank's half of a sweep band)"))
     # the tensor-parallel ranks: each model rank gathers its data index's whole rows
-    rows.append(_gather_row(scene_dev, _training_batches(tables, 0, 21), tp["steps"],
+    rows.append(_gather_row(scene_dev, _training_batches(tables, 0, KERNEL_CALLS), tp["steps"],
                             " (a (1, 2) mesh's rank: the whole training step, HYPELCNN-1200)"))
     rows.append(_gather_row(scene_dev, [c[:TRAIN_BATCH // 2]
-                                        for c in _training_batches(tables, 0, 21)],
+                                        for c in _training_batches(tables, 0, KERNEL_CALLS)],
                             tp["four_ranks_steps"],
                             " (a (2, 2) mesh's rank: its data index's half of the step)"))
     n_test = train["trainer"].sample_set.test_targets.shape[0]
@@ -3533,7 +3010,8 @@ def phase_kernels(device, scene, launches: int, train, families: dict, loaders: 
     # those of every main-path run at B = 1, and there should be none
     single = sum(run.get(1, 0) for run in MAIN_PATH_RUNS)
     check(single == 0, f"the main path launched the gather {single} times at B = 1")
-    rows.append(_gather_row(scene_dev, [c[:1] for c in _training_batches(tables, 0, 21)], single,
+    rows.append(_gather_row(scene_dev,
+                            [c[:1] for c in _training_batches(tables, 0, KERNEL_CALLS)], single,
                             " (one window: the smallest launch; not a main-path shape)"))
     # the shapes the other families add: the k = 5 band of CONCNN's and
     # DUALCNN's sweeps, and each family's training step
@@ -3546,19 +3024,20 @@ def phase_kernels(device, scene, launches: int, train, families: dict, loaders: 
         fam = families[name]
         family = fam["family"]
         rows.append(_gather_row(
-            fam["scene"].device_scene(device), _training_batches(fam["tables"], 0, 21),
+            fam["scene"].device_scene(device), _training_batches(fam["tables"], 0, KERNEL_CALLS),
             fam["train_launches"][family.batch],
             f" ({family.model} training step)", k=2 * family.neighborhood + 1))
     for name, note in (("loader_gulfport", "GULFPORT-ALT"), ("loader_avon", "AVON")):
         phase = loaders[name]
         rows.append(_gather_row(
-            phase["scene"].device_scene(device), _training_batches(phase["tables"], 0, 21),
+            phase["scene"].device_scene(device),
+            _training_batches(phase["tables"], 0, KERNEL_CALLS),
             phase["run"]["by_batch"][LOADER_BATCH], f" ({note} training step)"))
     # the classic-ML CLI's shapes, k = 1 on the unnormalized scene: each
     # split once, and the full scene in batches
     for split in ("training", "validation"):
         coords = classic["coords"][split]
-        rows.append(_gather_row(classic["scene"], [coords] * 21,
+        rows.append(_gather_row(classic["scene"], [coords] * KERNEL_CALLS,
                                 classic["by_batch"][coords.shape[0]],
                                 f" (classic ML: the {split} split, the same coordinates each call)",
                                 k=1))
@@ -3569,86 +3048,13 @@ def phase_kernels(device, scene, launches: int, train, families: dict, loaders: 
                             " launches once more)", k=1))
     # the empty-launch floor: a kernel that does nothing, timed as the rows
     # are; an instrument beside the rows, which the port never calls
-    floor = _event_times(lambda _: torch.cuda._sleep(0), [None] * 21)
+    floor = _event_times(lambda _: torch.cuda._sleep(0), [None] * KERNEL_CALLS)
     floor_ms = statistics.median(floor)
     emit({"phase": "launch_floor", "kernel": "torch.cuda._sleep(0)", "ms": floor_ms,
           "min_ms": min(floor), "max_ms": max(floor)})
     for row in rows:
         row["floor_ms"] = floor_ms
     emit({"kernels": rows})
-
-
-def _device_rows(prof) -> list:
-    """(kernel, device ms, calls) by device time; the ranges that
-    ``record_function`` annotates on the device timeline are not kernels and
-    are left out."""
-    rows = [(e.key, e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA
-            and not getattr(e, "is_user_annotation", False)]
-    return sorted(rows, key=lambda row: -row[1])
-
-
-def _traced(fn, untraced_ms: float, top: int) -> tuple:
-    """Run ``fn`` under ``torch.profiler``; (kernel rows, a summary with the
-    device's busy time and idle share against ``untraced_ms``, the wall time
-    of the same work untraced just before: tracing slows the host several
-    times over)."""
-    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=activities) as prof:
-        fn()
-        torch.cuda.synchronize()
-    rows = _device_rows(prof)
-    busy_ms = sum(row[1] for row in rows)
-    check(busy_ms > 0, "the profiler saw no device time")
-    idle = 1 - busy_ms / untraced_ms
-    return rows, {"untraced_ms": untraced_ms, "device_busy_ms": busy_ms,
-                  "device_idle_share": max(0.0, idle), "device_idle_share_raw": idle,
-                  "kernel_launches": sum(row[2] for row in rows),
-                  "top": [{"name": name[:120], "ms": ms, "calls": count}
-                          for name, ms, count in rows[:top]]}
-
-
-def _sweep_profile(device, scene, module, top: int = 20, untraced_ms=None) -> tuple:
-    """Device time by kernel over one traced full-scene sweep, against
-    ``untraced_ms`` (a sweep timed here when not given)."""
-    if untraced_ms is None:
-        untraced_ms = statistics.median(_timed_sweeps(
-            lambda: predict_full_scene(module, scene, device=device), runs=1)) * 1e3
-    return _traced(lambda: predict_full_scene(module, scene, device=device), untraced_ms, top)
-
-
-def _steps_profile(trainer, state, tables, start: int, count: int, top: int = 20) -> tuple:
-    """Device time by kernel over ``count`` traced training steps, against
-    the untraced wall time of the ``count`` steps just before them."""
-    untraced_ms = _timed_steps(trainer, state, tables, start, count) * 1e3
-
-    def steps():
-        for step in range(start + count, start + 2 * count):
-            trainer.train_step(state, tables, step)
-
-    return _traced(steps, untraced_ms, top)
-
-
-def phase_profile(device, scene, module) -> None:
-    """Device time by kernel over one full-scene sweep (``torch.profiler``)."""
-    _, summary = _sweep_profile(device, scene, module)
-    summary["untraced_sweep_ms"] = summary.pop("untraced_ms")
-    emit({"phase": "profile", **summary})
-
-
-def phase_profile_train(train) -> None:
-    """Device time by kernel over 10 traced training steps, against the
-    untraced wall time of the 25 steps just before them."""
-    trainer, state, tables, start = train["trainer"], train["state"], train["tables"], \
-        train["next_step"]
-    rows, summary = _steps_profile(trainer, state, tables, start, PROFILED_STEPS)
-    # the tracer can miss a kernel at the edge of the window (49 of 50 seen
-    # once); that every step runs the gather is the train phase's exact count
-    gather = [row for row in rows if "window_gather" in row[0]]
-    check(len(gather) == 1 and 0 < gather[0][2] <= PROFILED_STEPS,
-          f"gather kernels in the trace: {gather}")
-    emit({"phase": "profile_train", "steps": PROFILED_STEPS, **summary,
-          "gather_us_per_launch": gather[0][1] * 1e3 / gather[0][2]})
 
 
 def main() -> int:
@@ -3674,8 +3080,8 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as work:
         data = _training_data()
         world1 = timed("dist_world1", phase_dist_world1, device, Path(work), data)
-        scene, module, launches, macs = timed("infer_all", phase_infer_all, device, Path(work))
-        train = timed("train", phase_train, device, Path(work), data, macs)
+        scene, launches = timed("infer_all", phase_infer_all, device, Path(work))
+        train = timed("train", phase_train, device, Path(work), data)
         timed("train_vs_cpu", phase_train_vs_cpu, device, data, train["params"])
         timed("resume", phase_resume, device, train)
         timed("infer_trained", phase_infer_trained, device, Path(work), train)
@@ -3694,9 +3100,8 @@ def main() -> int:
         augmented = timed("gan_augmented", phase_gan_augmented, device, Path(work), root,
                           gan["log_dir"])
         searched = timed("search", phase_search, device, Path(work), root, grss2013)
-        timed("records", phase_records, device, Path(work), root, grss2013)
-        imported = timed("tf_checkpoint", phase_tf_checkpoint, device, Path(work), root,
-                         augmented)
+        timed("records", phase_records, device, Path(work), root)
+        imported = timed("tf_checkpoint", phase_tf_checkpoint, device, Path(work), root)
         jax_logs = timed("jax_log_dir", phase_jax_log_dir, device, Path(work), root, data)
         dist = timed("dist_two_ranks_one_card", phase_dist_two_ranks, device, Path(work), data,
                      gan["pairs"])
@@ -3717,9 +3122,7 @@ def main() -> int:
     later = {key: sum(run[key] for run in (searched, imported, jax_logs, world1, dist, bf16))
              for key in ("steps", "eval_batches")}
     timed("kernels", phase_kernels, device, scene, launches + jax_logs["bands"], train, families,
-          loaders, augmented["launches"], later, dist, classic, tp)
-    timed("profile", phase_profile, device, scene, module)
-    timed("profile_train", phase_profile_train, train)
+          loaders, augmented, later, dist, classic, tp)
     torch.cuda.synchronize()
     emit({"phase_seconds": seconds, "total_seconds": sum(seconds.values())})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
