@@ -29,7 +29,8 @@ step (at the step's batch) and once an eval batch; a sweep, once a band.
   convolution on ``conv2d``'s GEMM route.
 - ``train``: the train CLI (batch 48, dropout 0.7, rotation, reflection and
   spectral augmentation, 300 steps, checkpoints every 200): exact launches,
-  a falling loss, test OA above 0.5, orbax checkpoints, the GEMM route; its
+  a falling loss, test OA above 0.5, orbax checkpoints, the GEMM route and
+  the pointwise route of the 1x1s' gradients (no sweep takes it); its
   final state saved again and read back bit for bit. ``train_vs_cpu``: 3
   steps from one init, card against CPU. ``resume``: the CLI to 400 resumes
   at 300, and its saved step is its final state. ``infer_trained``: the
@@ -370,12 +371,19 @@ def _note_main_path() -> dict:
 
 
 def _conv_routes(model: str, what: str) -> dict:
-    """The convolutions that took the GEMM and cuDNN since the last
-    ``reset_conv_counts``; HYPELCNN's and DUALCNN's 3x3 levels (and
-    DUALCNN's LiDAR 5x5) cover their windows, so their runs must take the GEMM."""
-    routes = {"gemm": conv2d.gemm, "cudnn": conv2d.cudnn}
+    """The convolutions that took the GEMM, the pointwise route and cuDNN
+    since the last ``reset_conv_counts``; HYPELCNN's and DUALCNN's 3x3 levels
+    (and DUALCNN's LiDAR 5x5) cover their windows, so their runs must take the
+    GEMM, and their training runs' 1x1s the pointwise route. A sweep records
+    no autograd, so no run but training takes the pointwise route."""
+    routes = {"gemm": conv2d.gemm, "pointwise": conv2d.pointwise, "cudnn": conv2d.cudnn}
     if model in ("HYPELCNNModel", "DUALCNNModel"):
         check(routes["gemm"] > 0, f"{model} {what}: no convolution took the GEMM: {routes}")
+        if what == "training":
+            check(routes["pointwise"] > 0,
+                  f"{model} {what}: no 1x1 convolution took the pointwise route: {routes}")
+    if what != "training":
+        check(routes["pointwise"] == 0, f"{model} {what}: a 1x1 took the pointwise route: {routes}")
     return routes
 
 

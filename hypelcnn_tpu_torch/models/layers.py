@@ -34,9 +34,13 @@ and ``W <= k``) is a dense linear map from ``Cin*H*W`` inputs to
 (:func:`toeplitz_weight`), which does the work of the convolution's taps,
 SAME padding included. Without autograd (a sweep) the forward is that GEMM;
 under autograd (a training step) the forward stays ``F.conv2d``'s and the
-input and weight gradients are the two GEMMs of its backward. Everything
-else (1x1, VALID, a kernel smaller than its window) goes to ``F.conv2d``.
-``conv2d.gemm`` and ``conv2d.cudnn`` count the convolutions of each route.
+input and weight gradients are the two GEMMs of its backward. A 1x1
+convolution is a product over pixels: under autograd its forward stays
+``F.conv2d``'s and its gradients are two GEMMs over the pixel rows
+(:class:`_PointwiseGradients`). Everything else (a 1x1 without autograd,
+VALID, a kernel smaller than its window) goes to ``F.conv2d``.
+``conv2d.gemm``, ``conv2d.pointwise`` and ``conv2d.cudnn`` count the
+convolutions of each route.
 """
 
 from __future__ import annotations
@@ -194,6 +198,12 @@ def _image(rows: torch.Tensor, shape: Sequence[int], channels_last: bool) -> tor
     return rows.view(batch, channels, height, width)
 
 
+def _channel_rows(x: torch.Tensor) -> torch.Tensor:
+    """``[B, C, H, W]`` -> ``[B*H*W, C]``, a row a pixel: a view where the
+    channels vary fastest in ``x``'s memory, one copy otherwise."""
+    return x.permute(0, 2, 3, 1).reshape(-1, x.shape[1])
+
+
 def _channels_last(x: torch.Tensor) -> bool:
     """Whether the channels vary faster than the columns in ``x``'s memory
     (an NHWC tensor's NCHW view): the GEMM then runs channels last, so that
@@ -239,13 +249,43 @@ class _GemmGradients(torch.autograd.Function):
         return grad_x, grad_w, grad_b
 
 
+class _PointwiseGradients(torch.autograd.Function):
+    """``F.conv2d(x, weight, bias)`` for a 1x1 ``weight``, whose gradients are
+    two GEMMs over the pixel rows (:func:`_channel_rows`) of the output's
+    gradient ``G`` and the input ``X``: ``G @ W`` for the input (in ``x``'s
+    memory order), ``Gᵀ @ X`` for the weight, and ``G``'s column sums for
+    the bias."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias):
+        ctx.save_for_backward(x, weight)
+        return F.conv2d(x, weight, bias)
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, weight = ctx.saved_tensors
+        rows = _channel_rows(grad)
+        grad_x = grad_w = grad_b = None
+        if ctx.needs_input_grad[0]:
+            grad_x = _image(rows @ weight.reshape(weight.shape[:2]), x.shape, True)
+            if not _channels_last(x):
+                grad_x = grad_x.contiguous()
+        if ctx.needs_input_grad[1]:
+            grad_w = (rows.t() @ _channel_rows(x)).view(weight.shape)
+        if ctx.needs_input_grad[2]:
+            grad_b = rows.sum(0)
+        return grad_x, grad_w, grad_b
+
+
 def conv2d(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor],
            padding: int) -> torch.Tensor:
-    """``F.conv2d(x, weight, bias, padding=padding)``, routed by shape: where
-    the padding is SAME, the kernel is wider than 1 and it covers the input,
-    the GEMMs against :func:`toeplitz_weight`; ``F.conv2d`` (cuDNN on the
-    card) otherwise. ``conv2d.gemm`` and ``conv2d.cudnn`` count the calls of
-    each route.
+    """``F.conv2d(x, weight, bias, padding=padding)``, routed by shape and
+    grad mode: where the padding is SAME, the kernel is wider than 1 and it
+    covers the input, the GEMMs against :func:`toeplitz_weight`; a 1x1
+    convolution that autograd records (grad mode on, ``x`` or ``weight``
+    requiring grad), :class:`_PointwiseGradients`; ``F.conv2d`` (cuDNN on
+    the card) otherwise. ``conv2d.gemm``, ``conv2d.pointwise`` and
+    ``conv2d.cudnn`` count the calls of each route.
 
     A forward that autograd records stays ``F.conv2d``'s and only its
     gradients are GEMMs: a training step then rounds its forward as the plain
@@ -258,13 +298,18 @@ def conv2d(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor],
         if torch.is_grad_enabled():
             return _GemmGradients.apply(x, weight, bias)
         return conv2d_gemm(x, weight, bias)
+    if (weight.shape[-2:] == (1, 1) and padding == 0 and torch.is_grad_enabled()
+            and (x.requires_grad or weight.requires_grad)):
+        conv2d.pointwise += 1
+        return _PointwiseGradients.apply(x, weight, bias)
     conv2d.cudnn += 1
     return F.conv2d(x, weight, bias, padding=padding)
 
 
 def reset_conv_counts() -> None:
-    """Set both of :func:`conv2d`'s counts to 0."""
+    """Set each of :func:`conv2d`'s counts to 0."""
     conv2d.gemm = 0
+    conv2d.pointwise = 0
     conv2d.cudnn = 0
 
 

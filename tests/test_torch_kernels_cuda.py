@@ -26,7 +26,12 @@ from hypelcnn_tpu_torch.kernels import build
 from hypelcnn_tpu_torch.kernels.window_gather import reset_launches, window_gather_cuda
 from hypelcnn_tpu_torch.models.cap import CAPModel
 from hypelcnn_tpu_torch.models.hypelcnn import HYPELCNNModel
-from hypelcnn_tpu_torch.models.layers import conv2d, conv2d_gemm, init_parameters
+from hypelcnn_tpu_torch.models.layers import (
+    conv2d,
+    conv2d_gemm,
+    init_parameters,
+    reset_conv_counts,
+)
 from hypelcnn_tpu_torch.ops.nn import squash
 from hypelcnn_tpu_torch.ops.window_gather import gather_patches_torch
 from hypelcnn_tpu_torch.train.trainer import ClassificationTrainer
@@ -403,6 +408,75 @@ def test_conv_gemm_repeats_bit_for_bit(cuda, batch, cin, cout):
     inputs = _conv_gemm_inputs(cuda, batch, cin, cout)
     first = _conv_and_grads(conv2d_gemm, _routed, *inputs)
     second = _conv_and_grads(conv2d_gemm, _routed, *inputs)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+# (batch, in, out channels) of 1x1 convolutions on 3 x 3 windows: HYPELCNN-480's
+# encoder 240 -> 480, decoder 480 -> 480 and narrowest level branch 60 -> 15
+# at batch 16,384; DUALCNN's widest HSI 1x1s (960 -> 960, 960 -> 240) at 4,096
+POINTWISE_SHAPES = [(16384, 240, 480), (16384, 480, 480), (16384, 60, 15),
+                    (4096, 960, 960), (4096, 960, 240)]
+
+
+def _pointwise_inputs(cuda, batch, cin, cout):
+    gen = torch.Generator(device=cuda).manual_seed(batch + cin + cout)
+    # NHWC tensors' NCHW views, the input and the output's gradient as the
+    # models hand them over
+    x = torch.randn(batch, 3, 3, cin, generator=gen, device=cuda).permute(0, 3, 1, 2)
+    weight = torch.randn(cout, cin, 1, 1, generator=gen, device=cuda) / cin ** 0.5
+    bias = torch.randn(cout, generator=gen, device=cuda)
+    upstream = torch.randn(batch, 3, 3, cout, generator=gen, device=cuda).permute(0, 3, 1, 2)
+    return x, weight, bias, upstream
+
+
+def _pointwise_step(step, x, weight, bias, upstream):
+    """A training step's forward and its input, weight and bias gradients."""
+    leaves = [t.detach().requires_grad_() for t in (x, weight, bias)]
+    y = step(*leaves)
+    return [y.detach(), *torch.autograd.grad(y, leaves, upstream)]
+
+
+def _pointwise_routed(x, weight, bias):
+    return conv2d(x, weight, bias, 0)
+
+
+def _pointwise_cudnn(x, weight, bias):
+    return torch.nn.functional.conv2d(x, weight, bias)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch, cin, cout", POINTWISE_SHAPES)
+def test_pointwise_gradients_match_cudnn_at_the_cells_shapes(cuda, batch, cin, cout):
+    """A training step's 1x1 convolution: its forward cuDNN's own, bit for
+    bit, and its input, weight and bias gradients (GEMMs over pixel rows,
+    float32 with TF32 off) against cuDNN in float64, beside cuDNN in float32.
+    Tolerance 1e-5 of the largest float64 magnitude: float32 sums of up to
+    960 products (output, input gradient) and 147,456 (the weight and bias
+    gradients, 16,384 x 9 pixel rows) in two orders."""
+    x, weight, bias, upstream = _pointwise_inputs(cuda, batch, cin, cout)
+    reset_conv_counts()
+    got = _pointwise_step(_pointwise_routed, x, weight, bias, upstream)
+    assert conv2d.pointwise == 1
+    cudnn = _pointwise_step(_pointwise_cudnn, x, weight, bias, upstream)
+    exact = _pointwise_step(_pointwise_cudnn, x.double(), weight.double(), bias.double(),
+                            upstream.double())
+    assert torch.equal(got[0], cudnn[0])  # a training step's forward is cuDNN's own
+    for name, g, c, e in zip(("output", "input", "weight", "bias"), got, cudnn, exact):
+        scale = float(e.abs().max())
+        err = float((g.double() - e).abs().max()) / scale
+        cudnn_err = float((c.double() - e).abs().max()) / scale
+        print(f"{batch}x{cin}->{cout} {name}: {err:.3g}, cuDNN {cudnn_err:.3g}")
+        assert err < 1e-5, (name, err, cudnn_err)
+    assert got[1].is_contiguous(memory_format=torch.channels_last)  # the input's order
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch, cin, cout", [POINTWISE_SHAPES[1], POINTWISE_SHAPES[3]])
+def test_pointwise_gradients_repeat_bit_for_bit(cuda, batch, cin, cout):
+    """No atomic adds: two passes on the same inputs give the same bits."""
+    inputs = _pointwise_inputs(cuda, batch, cin, cout)
+    first = _pointwise_step(_pointwise_routed, *inputs)
+    second = _pointwise_step(_pointwise_routed, *inputs)
     assert all(torch.equal(a, b) for a, b in zip(first, second))
 
 
