@@ -42,7 +42,8 @@ step (at the step's batch) and once an eval batch; a sweep, once a band.
   and ``sample`` (equal to ``all`` but at pixels whose top two logits tie to
   1e-4; not for CAP, whose batch statistics and routing couple the batch);
   a sweep through the API equal to the plain gather's, CAP's on the folded
-  route only; DUALCNN's state saved and read back bit for bit.
+  route only, CONCNN's with 2 LRN calls a band over every feature;
+  DUALCNN's state saved and read back bit for bit.
 - ``loader_grss2013``, ``loader_grss2018``, ``loader_gulfport``,
   ``loader_avon``: each loader's own file layout written full size
   (``data.layouts``), read back bit for bit against the scene of the arrays
@@ -178,6 +179,7 @@ from hypelcnn_tpu_torch.models.layers import (
     init_parameters,
     reset_conv_counts,
 )
+from hypelcnn_tpu_torch.ops.nn import local_response_normalization, reset_lrn_counts
 from hypelcnn_tpu_torch.ops.window_gather import gather_patches_dual, gather_patches_torch
 from hypelcnn_tpu_torch.parallel.distributed import finalize_distributed, join_rank
 from hypelcnn_tpu_torch.parallel.distributed import rank as dist_rank
@@ -864,8 +866,11 @@ def phase_family(device, work: Path, family: Family) -> dict:
         if family.model == "DUALCNNModel" else None
     # the sweep through the API, its map the plain gather's
     CAPModule.reset_routes()
+    reset_lrn_counts()
     swept = predict_full_scene(module, scene, device=device)
     sweep_cap_routes = dict(CAPModule.routes)
+    lrn = {"calls": local_response_normalization.calls,
+           "elements": local_response_normalization.elements}
     check(np.array_equal(swept, plain_map),
           f"{family.model}: the kernel sweep's class map differs from the plain gather's")
     record = {"phase": family.phase, "model": family.model,
@@ -879,6 +884,12 @@ def phase_family(device, work: Path, family: Family) -> dict:
               "classes_in_map": len(np.unique(maps["all"])),
               "parameters": sum(p.numel() for p in module.parameters()),
               **({"checkpoint": checkpoint} if checkpoint else {})}
+    if family.model == "CONCNNModel":
+        # two LRNs a forward, one forward a band, each over all 3f channels of every window
+        width = 3 * params["filter_count"]
+        check(lrn == {"calls": 2 * n_bands, "elements": 2 * n_bands * BATCH_ROWS * WIDTH * k * k
+                      * width}, f"CONCNN's sweep: LRN counts {lrn} for {n_bands} bands")
+        record["lrn_counts"] = lrn
     if family.model == "CAPModel":
         # the sweep takes the folded route, which forms no u_hat (the counter
         # holds the u_hat bytes of the sweep's last forward, a band)

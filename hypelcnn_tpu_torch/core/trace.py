@@ -10,7 +10,11 @@ phase, CAP's forward (``models/cap.py``) marks its capsule layer:
 round's folded weight and weighted sum) and ``cap.routing`` (the rest of the
 routing and the class norms), with the forward's call number as ``id``; they
 are children of ``sweep.band`` in a sweep and of ``train_step.forward`` in a
-step.
+step. CONCNN's forward (``models/concnn.py``) marks ``concnn.front`` (the
+three bank convolutions and their concatenation) and ``concnn.lrn`` (each
+local response normalization, ``index`` 0 after the bank and 1 after
+``conv11``), with the forward's call number as ``id``, children of the same
+phases.
 
 Spans are off unless a ``torch.profiler`` session is active; off, a span is
 one read of the profiler's own flag and a shared no-op context. Under a

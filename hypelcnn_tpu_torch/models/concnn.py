@@ -17,15 +17,23 @@ are NCHW. The flatten before ``fc`` is in HWC order, as in JAX.
 ``compute_dtype: "bfloat16"`` runs the convolutions, LRN and dropout in
 bfloat16; ``fc``, which the JAX module builds without a dtype, computes in
 float32 from the bfloat16 features, and the logits are float32.
+
+Spans (``core/trace.py``; the forward's call number is their id):
+``concnn.front`` around the three bank convolutions and their concatenation,
+``concnn.lrn`` around each LRN, with index 0 after the bank and 1 after
+``conv11``. ``ops/nn.py`` counts the LRN calls and the elements they
+normalized (``local_response_normalization.calls`` and ``.elements``).
 """
 
 from __future__ import annotations
 
+import itertools
 from typing import Any, Dict, Optional, Sequence
 
 import torch
 from torch import nn
 
+from hypelcnn_tpu_torch.core import trace
 from hypelcnn_tpu_torch.core.registry import register_model
 from hypelcnn_tpu_torch.models.base import ModelOutput, NNModel, softmax_cross_entropy
 from hypelcnn_tpu_torch.models.layers import Dropout, SlimConv, SlimDense, compute_dtype
@@ -42,6 +50,7 @@ DEFAULT_PARAMS: Dict[str, Any] = {
     "optimizer": ["MomentumOptimizer", 0.9],
     "compute_dtype": "float32",
 }
+_FORWARDS = itertools.count()  # a forward's call number, the id of its spans
 
 
 class CONCNNModule(nn.Module):
@@ -65,10 +74,16 @@ class CONCNNModule(nn.Module):
                 dropout_generator: Optional[torch.Generator] = None) -> ModelOutput:
         """``x``: NHWC float32 patches ``[B, k, k, C]``; ``dropout_generator``
         draws the dropout masks in train mode."""
+        call = next(_FORWARDS)
         net = x.to(self.dtype).permute(0, 3, 1, 2)
-        net0 = local_response_normalization(torch.cat(
-            [self.conv0_1x1(net), self.conv0_3x3(net), self.conv0_5x5(net)], dim=1))
-        net11 = local_response_normalization(self.conv11(net0))
+        with trace.span("concnn.front", call):
+            net0 = torch.cat([self.conv0_1x1(net), self.conv0_3x3(net), self.conv0_5x5(net)],
+                             dim=1)
+        with trace.span("concnn.lrn", call, 0):
+            net0 = local_response_normalization(net0)
+        net11 = self.conv11(net0)
+        with trace.span("concnn.lrn", call, 1):
+            net11 = local_response_normalization(net11)
         net13 = self.conv13(self.conv12(net11)) + net11
         net22 = self.conv22(self.conv21(net13)) + net13
         net31 = self.dropout(self.conv31(net22), dropout_generator)

@@ -53,13 +53,27 @@ def local_response_normalization(x: torch.Tensor, depth_radius: int = 5, bias: f
     of cumulative sums as the JAX package takes it.
     ``torch.nn.functional.local_response_norm`` divides ``alpha`` by the
     window size and pads differently, so it computes another function.
+
+    ``local_response_normalization.calls`` and ``.elements`` count the calls
+    and the elements they normalized since :func:`reset_lrn_counts`.
     """
+    local_response_normalization.calls += 1
+    local_response_normalization.elements += x.numel()
     sq = torch.square(x).movedim(dim, -1)
     padded = torch.nn.functional.pad(sq, (depth_radius + 1, depth_radius))
     cs = torch.cumsum(padded, dim=-1) if x.dtype == torch.float32 else _scan_sum(padded)
     win = 2 * depth_radius + 1
     window_sums = (cs[..., win:] - cs[..., :-win]).movedim(-1, dim)
     return x / torch.pow(bias + alpha * window_sums, beta)
+
+
+def reset_lrn_counts() -> None:
+    """Set :func:`local_response_normalization`'s counts to 0."""
+    local_response_normalization.calls = 0
+    local_response_normalization.elements = 0
+
+
+reset_lrn_counts()
 
 
 def _scan_sum(x: torch.Tensor, block: int = 16) -> torch.Tensor:
